@@ -1,0 +1,136 @@
+"""The port's `decode` command line on the CPU, its refusals, and the
+rule that the port never imports jax."""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from tetraear_tpu.io.replay import save_iq
+from tetraear_tpu.ui import cli as jax_cli
+
+from tetraear_tpu_torch.ui import cli
+
+REPO = Path(__file__).resolve().parents[2]
+PLANTED = (3, 8, 12)        # grid indices of carrier_grid(16)
+
+
+@pytest.fixture(scope="module")
+def planted(tmp_path_factory):
+    """A .cf32 with golden bursts on three carriers of carrier_grid(16)."""
+    from tetraear_tpu_torch.utils.synth import planted_wideband
+    x, want = planted_wideband(PLANTED)
+    path = tmp_path_factory.mktemp("iq") / "planted.cf32"
+    save_iq(path, x)
+    return path, want
+
+
+def _texts(jsonl):
+    got = {}
+    for line in Path(jsonl).read_text().splitlines():
+        frame = json.loads(line)
+        got.setdefault(frame["carrier"], set()).add(frame.get("sds_message"))
+    return got
+
+
+def test_decode_finds_planted_texts_like_jax_cli(planted, tmp_path, capsys):
+    """`decode --carriers 16 --conv s2d` on the CPU finds each planted
+    text on its grid index, and the same texts per carrier as the JAX
+    package's own `decode --carriers 16 --conv s2d`."""
+    iq, want = planted
+    out = tmp_path / "port.jsonl"
+    rc = cli.main(["decode", str(iq), "--carriers", "16", "--conv", "s2d",
+                   "--device", "cpu", "-o", str(out)])
+    log = capsys.readouterr().out
+    assert rc == 0
+    assert "[DEVICE] cpu" in log and "[DONE]" in log and "[CARRIERS]" in log
+    got = _texts(out)
+    for k, text in want.items():
+        assert text in got.get(k, set()), (k, got)
+    ref = tmp_path / "jax.jsonl"
+    assert jax_cli.main(["decode", str(iq), "--carriers", "16", "--conv",
+                         "s2d", "-o", str(ref)]) == 0
+    assert got == _texts(ref)
+
+
+def test_chunks_keep_decoding(planted, tmp_path):
+    """Several chunks, the last one zero-padded: the planted texts still
+    come back (the stream is split mid-burst, so fewer slots survive)."""
+    iq, want = planted
+    out = tmp_path / "chunks.jsonl"
+    assert cli.main(["decode", str(iq), "--carriers", "16", "--conv",
+                     "pallas", "--chunk-size", "70000", "-o", str(out)]) == 0
+    got = _texts(out)
+    assert any(want[k] in got.get(k, set()) for k in want)
+
+
+@pytest.mark.parametrize("argv,msg", [
+    (["--carriers", "16", "--pfb"], "not ported yet"),
+    (["--carriers", "16", "--afc"], "not ported yet"),
+    (["--carriers", "0"], "--carriers N"),
+])
+def test_refuses_what_is_not_ported(planted, argv, msg):
+    with pytest.raises(SystemExit, match=msg):
+        cli.main(["decode", str(planted[0]), *argv])
+
+
+def test_conv_choices_come_from_the_variant_table(planted):
+    from tetraear_tpu_torch.models.multicarrier import CONV_VARIANTS
+    assert set(CONV_VARIANTS) == {"s2d", "pallas", "pallas_bf16"}
+    with pytest.raises(SystemExit):
+        cli.main(["decode", str(planted[0]), "--carriers", "16",
+                  "--conv", "pallas_db"])
+
+
+def test_cuda_device_without_card_raises(planted):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        cli.main(["decode", str(planted[0]), "--carriers", "16",
+                  "--device", "cuda"])
+
+
+def _run(code):
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+def test_jax_package_loads_after_the_port():
+    """The port's jax-free stand-in for tetraear_tpu.ops.crc hands over to
+    the real module when a JAX-package module asks for a device function."""
+    _run("import sys\n"
+         "from tetraear_tpu_torch.models.multicarrier import "
+         "MulticarrierDecoder\n"
+         "MulticarrierDecoder(1)\n"
+         "assert 'jax' not in sys.modules\n"
+         "from tetraear_tpu.models.multicarrier import MulticarrierFrontend\n"
+         "crc = sys.modules['tetraear_tpu.ops.crc']\n"
+         "assert crc.soft_crc_check_batch.__module__ == crc.__name__\n"
+         "assert hasattr(crc, 'soft_crc_dense')\n")
+
+
+def test_port_never_imports_jax():
+    """Importing the port, building the host decoder and a planted signal
+    leave jax out of sys.modules; no source line imports it."""
+    code = (
+        "import sys\n"
+        "import tetraear_tpu_torch, tetraear_tpu_torch.models.multicarrier\n"
+        "import tetraear_tpu_torch.ui.cli\n"
+        "from tetraear_tpu_torch.models.multicarrier import "
+        "MulticarrierDecoder\n"
+        "from tetraear_tpu_torch.utils.synth import planted_wideband\n"
+        "MulticarrierDecoder(2)\n"
+        "planted_wideband([3], num_frames=1)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m.startswith('jaxlib')]\n"
+        "assert not bad, bad[:5]\n")
+    _run(code)
+    for src in (REPO / "tetraear_tpu_torch").rglob("*.py"):
+        for line in src.read_text().splitlines():
+            stripped = line.strip()
+            assert not stripped.startswith(("import jax", "from jax")), (
+                src, line)

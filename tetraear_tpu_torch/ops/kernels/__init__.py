@@ -1,0 +1,71 @@
+"""Hand-written Hopper kernels and their build.
+
+Each kernel's CUDA C++ source lives in `tetraear_tpu_torch/csrc/`, has a
+plain C interface, and is compiled by `nvcc` for sm_90a into a shared
+library under `<checkout>/build/kernels/` on first use, then loaded with
+ctypes.  Nothing is built when a module is imported, so the package
+imports (and its CPU tests run) on a machine without nvcc or a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing or refused a kernel source."""
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    raise KernelBuildError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                           "/usr/local/cuda/bin)")
+
+
+@functools.lru_cache(maxsize=None)
+def build(name: str) -> tuple:
+    """Compile csrc/<name>.cu (once per process and source version) and
+    return (ctypes.CDLL, build report).  The report holds the build time
+    and nvcc's -Xptxas -v lines (registers, shared memory, spills); it is
+    empty when an earlier process already built this source."""
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    lib_path = BUILD_DIR / f"lib{name}_{digest}.so"
+    report = ""
+    if not lib_path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        t0 = time.perf_counter()
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise KernelBuildError(
+                f"nvcc failed on {src.name} (exit {proc.returncode}):\n"
+                f"{proc.stderr[-4000:]}")
+        os.replace(tmp, lib_path)
+        report = (f"built {lib_path.name} in "
+                  f"{time.perf_counter() - t0:.1f} s\n{proc.stderr}")
+    return ctypes.CDLL(str(lib_path)), report

@@ -1,0 +1,149 @@
+"""Command line of the port: the wideband multicarrier `decode`.
+
+    python -m tetraear_tpu_torch decode <iq> --carriers N
+        [--conv s2d|pallas|pallas_bf16] [-o out.jsonl] [--chunk-size S]
+        [--device cuda|cpu]
+
+Mirrors `tetraear_tpu decode --carriers N` (tetraear_tpu/ui/cli.py
+_decode_multicarrier): chunks read with FileReplaySource, the last chunk
+zero-padded to full length, the device result of chunk i+1 queued before
+chunk i is decoded on the host, and the same [DONE]/[PERF]/[CARRIERS]
+lines.  The device is explicit: `--device` or, by default, cuda when a
+card is present and cpu otherwise, printed as [DEVICE]; there is no
+fallback from one to the other.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from pathlib import Path
+
+import torch
+
+from tetraear_tpu_torch.models.multicarrier import CONV_VARIANTS
+
+_LATER = {"pfb": "--pfb (the 96-channel filterbank) is not ported yet "
+                 "(ROADMAP.md Queue 1, Slice 3)",
+          "afc": "--afc (grid-comb AFC) is not ported yet "
+                 "(ROADMAP.md Queue 1, Slice 4)"}
+
+
+def _device(name: str | None) -> torch.device:
+    if name is None:
+        name = "cuda" if torch.cuda.is_available() else "cpu"
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {name}: no CUDA device is available")
+    return dev
+
+
+def cmd_decode(args) -> int:
+    import numpy as np
+    from tetraear_tpu.io.recorder import JsonlFrameRecorder
+    from tetraear_tpu.io.replay import FileReplaySource
+    from tetraear_tpu_torch.models.multicarrier import (MulticarrierDecoder,
+                                                        MulticarrierFrontend)
+    from tetraear_tpu_torch.ops.channelizer import carrier_grid
+
+    for flag, msg in _LATER.items():
+        if getattr(args, flag):
+            raise SystemExit(msg)
+    if args.carriers <= 0:
+        raise SystemExit("--carriers N (N > 0) is required: the "
+                         "single-carrier decode is not ported yet "
+                         "(ROADMAP.md Queue 1, Slice 2)")
+    dev = _device(args.device)
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "host"
+    conv = CONV_VARIANTS[args.conv]
+    if dev.type == "cpu" and args.conv != "s2d":
+        conv += "; K1's plain version on the CPU"
+    print(f"[DEVICE] {dev} ({name}), conv {args.conv}: {conv}")
+
+    source = FileReplaySource(args.iq_file,
+                              sample_rate=args.sample_rate * 1e6)
+    if not source.open():
+        print(f"[FAIL] Could not open {args.iq_file}")
+        return 1
+    offsets = carrier_grid(args.carriers)
+    mc = MulticarrierFrontend.from_offsets(offsets, device=dev,
+                                           conv=args.conv)
+    dec = MulticarrierDecoder(args.carriers, auto_decrypt=args.auto_decrypt)
+    out_path = args.out_jsonl or (str(Path(args.iq_file).with_suffix(""))
+                                  + "_frames.jsonl")
+    chunk = args.chunk_size
+    frame_count = 0
+    per_carrier = [0] * args.carriers
+    t0 = time.time()
+    samples_total = 0
+    start_index = 0
+
+    def _emit(res):
+        nonlocal frame_count
+        for frames in dec.decode(res):
+            for frame in frames:
+                frame_count += 1
+                per_carrier[frame["carrier"]] += 1
+                rec.write(frame)
+
+    with JsonlFrameRecorder(out_path, include_bits=not args.no_bits) as rec:
+        # queue chunk i+1 on the device before host-decoding chunk i; the
+        # device-to-host copies in dec.decode are the only sync points
+        pending = None
+        while not source.exhausted:
+            samples = source.read_samples(chunk)
+            if len(samples) == 0:
+                break
+            samples_total += len(samples)
+            if len(samples) < chunk:
+                samples = np.pad(samples, (0, chunk - len(samples)))
+            res = mc(samples, start_index=start_index)
+            start_index += chunk
+            if pending is not None:
+                _emit(pending)
+            pending = res
+        if pending is not None:
+            _emit(pending)
+    dt = time.time() - t0
+    print(f"[DONE] {frame_count} frames across {args.carriers} carriers "
+          f"-> {out_path}")
+    print(f"[PERF] {samples_total / max(dt, 1e-9) / 1e6:.2f} MS/s wideband "
+          f"through {args.carriers}-carrier demod+decode on {dev}")
+    hot = {c: n for c, n in enumerate(per_carrier) if n}
+    print(f"[CARRIERS] frames per carrier: {hot}")
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="tetraear_tpu_torch",
+        description="TETRA wideband decode on PyTorch / CUDA")
+    sub = p.add_subparsers(dest="command", required=True)
+    d = sub.add_parser("decode", help="offline wideband IQ file -> frames "
+                                      "JSONL, every carrier of the grid")
+    d.add_argument("iq_file", type=str)
+    d.add_argument("-s", "--sample-rate", type=float, default=2.4)
+    d.add_argument("--auto-decrypt", action=argparse.BooleanOptionalAction,
+                   default=False)
+    d.add_argument("--chunk-size", type=int, default=256 * 1024)
+    d.add_argument("--carriers", type=int, default=0,
+                   help="decode N carriers of the 25 kHz grid")
+    d.add_argument("--conv", choices=tuple(CONV_VARIANTS),
+                   default="pallas_bf16",
+                   help="composite conv: " + "; ".join(
+                       f"{k} = {v}" for k, v in CONV_VARIANTS.items()))
+    d.add_argument("--device", type=str, default=None,
+                   help="torch device (default: cuda if available, "
+                        "else cpu)")
+    d.add_argument("--no-bits", action="store_true",
+                   help="omit raw bits from the JSONL")
+    d.add_argument("--pfb", action="store_true", help="not ported yet")
+    d.add_argument("--afc", action="store_true", help="not ported yet")
+    d.add_argument("-o", "--out-jsonl", type=str, default=None)
+    d.set_defaults(func=cmd_decode)
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    return args.func(args)
