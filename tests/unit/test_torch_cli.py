@@ -67,8 +67,28 @@ def test_chunks_keep_decoding(planted, tmp_path):
     assert any(want[k] in got.get(k, set()) for k in want)
 
 
+def test_pfb_decode_finds_planted_texts_on_fftfreq_channels(tmp_path,
+                                                             capsys):
+    """`decode --carriers 16 --pfb --conv pallas_bf16` on the CPU decodes
+    all 96 channels; each planted text comes back on its fftfreq channel
+    index (the reference's test_pfb.py:TestPfbFrontend signal)."""
+    from tetraear_tpu_torch.utils.synth import planted_pfb
+    x, want = planted_pfb()
+    iq = tmp_path / "pfb.cf32"
+    save_iq(iq, x)
+    out = tmp_path / "pfb.jsonl"
+    rc = cli.main(["decode", str(iq), "--carriers", "16", "--pfb", "--conv",
+                   "pallas_bf16", "--device", "cpu", "-o", str(out)])
+    log = capsys.readouterr().out
+    assert rc == 0
+    assert "across 96 carriers" in log and "plain version on the CPU" in log
+    got = _texts(out)
+    for c, text in want.items():
+        assert text in got.get(c, set()), (c, got)
+
+
 @pytest.mark.parametrize("argv,msg", [
-    (["--carriers", "16", "--pfb"], "not ported yet"),
+    (["--carriers", "16", "--pfb", "--conv", "s2d_of"], "16-carrier variant"),
     (["--carriers", "16", "--afc"], "not ported yet"),
     (["--carriers", "0"], "--carriers N"),
 ])
@@ -77,12 +97,26 @@ def test_refuses_what_is_not_ported(planted, argv, msg):
         cli.main(["decode", str(planted[0]), *argv])
 
 
-def test_conv_choices_come_from_the_variant_table(planted):
+def test_conv_choices_come_from_the_variant_table(planted, capsys):
+    """The frontends' table holds every ported conv; the CLI offers the
+    reference CLI's --conv choices among them.  pallas_db and
+    pallas_of<N> are reached through the frontends, as in the reference."""
     from tetraear_tpu_torch.models.multicarrier import CONV_VARIANTS
-    assert set(CONV_VARIANTS) == {"s2d", "pallas", "pallas_bf16"}
+    assert set(CONV_VARIANTS) == {"s2d", "s2d_of", "pallas", "pallas_bf16",
+                                  "pallas_db", "pallas_of<N>",
+                                  "pallas_of<N>_bf16"}
+    assert cli.CLI_CONVS == ("s2d", "s2d_of", "pallas", "pallas_bf16")
+    # the reference's choices, as its argparse lists them on a bad one
     with pytest.raises(SystemExit):
-        cli.main(["decode", str(planted[0]), "--carriers", "16",
-                  "--conv", "pallas_db"])
+        jax_cli.main(["decode", str(planted[0]), "--conv", "?"])
+    listed = capsys.readouterr().err.split("choose from")[1].split(")")[0]
+    ref_choices = {c.strip(" '") for c in listed.split(",")}
+    assert "s2d_mono" in ref_choices
+    assert set(cli.CLI_CONVS) == ref_choices & set(CONV_VARIANTS)
+    for conv in ("pallas_db", "pallas_of4"):
+        with pytest.raises(SystemExit):
+            cli.main(["decode", str(planted[0]), "--carriers", "16",
+                      "--conv", conv])
 
 
 def test_cuda_device_without_card_raises(planted):

@@ -3,7 +3,7 @@
 Both packages convolve with the identical composite kernel
 (`MulticarrierFrontend.from_reference` takes the reference's
 `fused_kernel` output).  The f32 paths must give identical decisions;
-the bf16 path must decode the same planted bursts."""
+the bf16 paths must decode the same planted bursts."""
 
 import numpy as np
 import pytest
@@ -23,7 +23,7 @@ CUTOFF = (CFG.channel_bandwidth_hz / 2) / (CFG.intermediate_rate_hz / 2)
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: K1 has no CPU mode")
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     return torch.device("cuda:0")
 
 
@@ -75,10 +75,11 @@ def wideband():
 
 @pytest.fixture(scope="module")
 def jax_wideband(wideband):
-    """JAX pallas_bf16 and s2d results (numpy) on the planted signal."""
+    """JAX pallas_bf16, pallas_of4_bf16 and s2d results (numpy) on the
+    planted signal."""
     return {v: _np(jmc.MulticarrierFrontend(fused=v)(wideband,
                                                      WIDEBAND_OFFSETS))
-            for v in ("pallas_bf16", "s2d")}
+            for v in ("pallas_bf16", "pallas_of4_bf16", "s2d")}
 
 
 def _assert_same_valid_candidates(a, b, rows=None):
@@ -95,7 +96,8 @@ def _assert_same_valid_candidates(a, b, rows=None):
 
 
 class TestFrontendParity:
-    @pytest.mark.parametrize("conv", ["s2d", "pallas"])
+    @pytest.mark.parametrize("conv", ["s2d", "pallas", "s2d_of",
+                                      "pallas_of4", "pallas_db"])
     def test_noise_bit_identical_to_jax_s2d(self, conv):
         """f32 conv on both sides (sum order apart): bits, counts,
         candidate positions, frames and CRC verdicts identical; the
@@ -122,8 +124,16 @@ class TestFrontendParity:
         """bf16 operands on both sides: the port's pallas_bf16 decodes the
         same per-carrier SDS texts as the JAX pallas_bf16, and its
         candidates and CRC verdicts agree on valid slots."""
-        got = _port(WIDEBAND_OFFSETS, "pallas_bf16")(wideband)
-        want = jax_wideband["pallas_bf16"]
+        self._decodes_like_jax("pallas_bf16", wideband, jax_wideband)
+
+    def test_pallas_of4_bf16_decodes_like_jax(self, wideband, jax_wideband):
+        """The same for the output-folded K1-of with bf16 operands."""
+        self._decodes_like_jax("pallas_of4_bf16", wideband, jax_wideband)
+
+    @staticmethod
+    def _decodes_like_jax(conv, wideband, jax_wideband):
+        got = _port(WIDEBAND_OFFSETS, conv)(wideband)
+        want = jax_wideband[conv]
         _assert_same_valid_candidates(_np(got), want)
         port_frames = tmc.MulticarrierDecoder(3).decode(got)
         jax_frames = jmc.MulticarrierDecoder(3).decode(
@@ -163,8 +173,23 @@ class TestFrontendModule:
         assert (own.gc, own.L, own.decim) == (gc, kernel.shape[-1], 10)
         assert own.conv == "pallas_bf16" and own.num_candidates == 64
 
+    def test_folded_convs_carry_the_folded_kernel(self):
+        """s2d_of folds by max(1, min(8, 128 // C2)) (8 for C2 = 6),
+        pallas_of<N> by N; the buffer is the reference's s2d_of_kernel."""
+        kernel, _, _ = _reference_kernel(WIDEBAND_OFFSETS)
+        for conv, fold in (("s2d_of", 8), ("pallas_of4", 4),
+                           ("pallas_of6_bf16", 6)):
+            mc = _port(WIDEBAND_OFFSETS, conv)
+            assert mc.fold == fold
+            np.testing.assert_array_equal(
+                mc.kernel_of.numpy(),
+                np.asarray(jfused.s2d_of_kernel(kernel, 10, fold)))
+        assert "kernel_of" not in dict(
+            _port(WIDEBAND_OFFSETS, "pallas_db").named_buffers())
+
     def test_unknown_variant_raises(self):
-        for bad in ("pallas_db", "pallas_of4", "fused", "s2d_mono"):
+        for bad in ("pallas_hb16", "pallas_of", "pallas_of7", "pallas_ofx",
+                    "pallas_of4_f16", "pallas_of<N>", "fused", "s2d_mono"):
             with pytest.raises(ValueError):
                 _port(WIDEBAND_OFFSETS, bad)
 
@@ -184,9 +209,22 @@ class TestFrontendModule:
 def test_pallas_bf16_on_card_decodes_planted(cuda_device, wideband):
     """K1 on the card: every planted text on its carrier, K1 launched, and
     the planted carriers' valid candidates equal the CPU f32 path's."""
-    before = k1.LAUNCHES
-    got = _port(WIDEBAND_OFFSETS, "pallas_bf16", device=cuda_device)(wideband)
-    assert k1.LAUNCHES == before + 1
+    _card_decodes_planted("pallas_bf16", "s2d_conv", cuda_device, wideband)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("conv,wrapper", [("pallas_of4_bf16", "s2d_conv_of"),
+                                          ("pallas_db", "s2d_conv_db")])
+def test_k1_of_and_k3_on_card_decode_planted(cuda_device, wideband, conv,
+                                             wrapper):
+    """The same through K1-of (bf16 operands) and K3."""
+    _card_decodes_planted(conv, wrapper, cuda_device, wideband)
+
+
+def _card_decodes_planted(conv, wrapper, cuda_device, wideband):
+    before = k1.LAUNCHES[wrapper]
+    got = _port(WIDEBAND_OFFSETS, conv, device=cuda_device)(wideband)
+    assert k1.LAUNCHES[wrapper] == before + 1
     frames = tmc.MulticarrierDecoder(3).decode(got)
     for c in range(3):
         assert f"[TXT] CARRIER {c + 1} MSG" in {

@@ -40,12 +40,16 @@ CUTOFF = (CFG.channel_bandwidth_hz / 2) / (CFG.intermediate_rate_hz / 2)
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: K1 has no CPU mode")
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     return torch.device("cuda:0")
 
 
 def _kernel(num_carriers):
-    """Reference composite kernel on carrier_grid(num_carriers)."""
+    """Reference composite kernel on carrier_grid(num_carriers), or the
+    full-band filterbank's (gc = 0, L = 768) for "pfb"."""
+    if num_carriers == "pfb":
+        kernel, gc, rot = jfused.pfb_kernel(96, CFG.sample_rate_hz)
+        return np.asarray(kernel), gc, np.asarray(rot)
     offs = jch.carrier_grid(num_carriers).astype(np.float64)
     kernel, gc, rot = jfused.fused_kernel(
         offs, CFG.sample_rate_hz, D, CFG.decim_fir_taps_per_phase,
@@ -91,6 +95,14 @@ class TestBuilders:
                 tfused.symbol_rotation(trot, D, CFG.ref_samples_per_symbol),
                 jfused.symbol_rotation(jrot, D, CFG.ref_samples_per_symbol)):
             np.testing.assert_array_equal(got, want)
+
+    @pytest.mark.parametrize("fold", [1, 4, 6, 8])
+    def test_s2d_of_kernel_equal(self, fold):
+        kernel, _, _ = _kernel(16)
+        got = tfused.s2d_of_kernel(kernel, D, fold)
+        assert got.shape == (32 * fold, 2 * D, 77 + fold - 1)
+        np.testing.assert_array_equal(
+            got, np.asarray(jfused.s2d_of_kernel(kernel, D, fold)))
 
     def test_crc_matrix_and_grid_equal(self):
         for m in (16, 200, 331):
@@ -142,17 +154,92 @@ class TestS2dConv:
 
     def test_wrapper_runs_plain_on_cpu(self):
         """A CPU tensor takes the plain version (same function, so equal
-        bit for bit) and is no K1 launch."""
+        bit for bit) and is no launch of K1, K1-of or K3."""
         kernel, gc, _ = _kernel(4)
+        L = kernel.shape[-1]
         k2 = torch.from_numpy(tfused.s2d_kernel(kernel, D))
+        k_of = torch.from_numpy(tfused.s2d_of_kernel(kernel, D, 4))
         x = torch.from_numpy(_noise(5_003, 5))
-        before = k1.LAUNCHES
+        before = dict(k1.LAUNCHES)
         for bf16 in (False, True):
-            got = k1.s2d_conv(x, k2, gc, kernel.shape[-1], D, bf16=bf16)
-            want = k1.s2d_conv_plain(x, k2, gc, kernel.shape[-1], D,
-                                     bf16=bf16)
+            got = k1.s2d_conv(x, k2, gc, L, D, bf16=bf16)
+            want = k1.s2d_conv_plain(x, k2, gc, L, D, bf16=bf16)
             assert torch.equal(got, want)
+            got = k1.s2d_conv_of(x, k_of, gc, L, D, 4, bf16=bf16)
+            want = k1.s2d_conv_of_plain(x, k_of, gc, L, D, 4, bf16=bf16)
+            assert torch.equal(got, want)
+        assert torch.equal(k1.s2d_conv_db(x, k2, gc, L, D),
+                           k1.s2d_conv_plain(x, k2, gc, L, D))
         assert k1.LAUNCHES == before
+
+    @pytest.mark.parametrize("n", [40_000, 40_007, 12_345])
+    def test_of_plain_matches_reference(self, n):
+        """The folded plain conv vs fused._s2d_conv_folded and the JAX
+        Pallas of4 / of4_bf16 variants: f32 sum-order tolerance; the bf16
+        one within 1e-2 of the f32 scale (test_pallas_kernels.py:188-208)
+        and, both sides rounding the operands alike, within the sum-order
+        bound of the JAX bf16 kernel."""
+        kernel, gc, _ = _kernel(16)
+        L = kernel.shape[-1]
+        k2 = np.array(jfused.s2d_kernel(kernel, D))
+        k_of = np.array(jfused.s2d_of_kernel(kernel, D, 4))
+        x = _noise(n, 0x0F4 ^ n)
+        want = np.asarray(jfused._s2d_conv_folded(jnp.asarray(x), k_of, gc,
+                                                  L, D, 4))
+        xt, kt = torch.from_numpy(x), torch.from_numpy(k_of)
+        got = k1.s2d_conv_of_plain(xt, kt, gc, L, D, 4).numpy()
+        scale = np.abs(want).max()
+        assert got.shape == want.shape == (32, -(-n // D))
+        assert np.abs(got - want).max() < 4e-6 * scale
+        jof4 = np.asarray(pallas_s2d_conv(jnp.asarray(x), k2, gc, L, D,
+                                          variant="of4"))
+        assert np.abs(got - jof4).max() < 4e-6 * scale
+        gotb = k1.s2d_conv_of_plain(xt, kt, gc, L, D, 4, bf16=True).numpy()
+        jof4b = np.asarray(pallas_s2d_conv(jnp.asarray(x), k2, gc, L, D,
+                                           variant="of4_bf16"))
+        assert np.abs(gotb - want).max() < 1e-2 * scale
+        assert np.abs(gotb - jof4b).max() < 4e-6 * scale
+
+    def test_db_matches_jax_db(self):
+        """The port's pallas_s2d_conv(variant="db") vs the JAX one: the
+        reference pins db within 1e-6 of the XLA conv
+        (test_pallas_kernels.py:149-162)."""
+        kernel, gc, _ = _kernel(16)
+        k2 = np.array(jfused.s2d_kernel(kernel, D))
+        x = _noise(40_007, 0xDB)
+        want = np.asarray(pallas_s2d_conv(jnp.asarray(x), k2, gc,
+                                          kernel.shape[-1], D, variant="db"))
+        got = k1.pallas_s2d_conv(torch.from_numpy(x), k2, gc,
+                                 kernel.shape[-1], D, variant="db").numpy()
+        assert got.shape == want.shape
+        assert np.abs(got - want).max() < 1e-6
+
+    def test_pallas_s2d_conv_routes_variants(self):
+        """On the CPU each variant is its kernel's plain version, bit for
+        bit; dt / dt_bf16 (K4) are refused as not ported, as are folds
+        over 2D * fold = 128 and unknown names."""
+        kernel, gc, _ = _kernel(4)
+        L = kernel.shape[-1]
+        k2 = tfused.s2d_kernel(kernel, D)
+        kt = torch.from_numpy(k2)
+        x = torch.from_numpy(_noise(3_001, 3))
+        plain = {"dma": k1.s2d_conv_plain(x, kt, gc, L, D),
+                 "bf16": k1.s2d_conv_plain(x, kt, gc, L, D, bf16=True),
+                 "db": k1.s2d_conv_plain(x, kt, gc, L, D)}
+        for fold in (1, 4, 6):
+            kof = torch.from_numpy(tfused.fold_s2d_kernel(k2, fold))
+            for bf16 in (False, True):
+                plain[f"of{fold}" + "_bf16" * bf16] = k1.s2d_conv_of_plain(
+                    x, kof, gc, L, D, fold, bf16=bf16)
+        for variant, want in plain.items():
+            got = k1.pallas_s2d_conv(x, k2, gc, L, D, variant=variant)
+            assert torch.equal(got, want), variant
+        for variant in ("dt", "dt_bf16"):
+            with pytest.raises(ValueError, match="K4"):
+                k1.pallas_s2d_conv(x, k2, gc, L, D, variant=variant)
+        for variant in ("of7", "of0", "of4_f16", "ofx", "bf16h", "dma2"):
+            with pytest.raises(ValueError):
+                k1.pallas_s2d_conv(x, k2, gc, L, D, variant=variant)
 
     def test_wrapper_refuses_other_devices(self):
         kernel, gc, _ = _kernel(4)
@@ -164,7 +251,8 @@ class TestS2dConv:
     @pytest.mark.cuda
     @pytest.mark.parametrize("bf16", [False, True])
     @pytest.mark.parametrize("num_carriers,n", [(16, 100_003),
-                                                (96, 40_007)])
+                                                (96, 40_007),
+                                                ("pfb", 40_007)])
     def test_k1_matches_plain_on_card(self, cuda_device, num_carriers, n,
                                       bf16):
         """K1 vs the plain version on the card, TF32 off: f32 sum-order
@@ -172,12 +260,55 @@ class TestS2dConv:
         kernel, gc, _ = _kernel(num_carriers)
         k2 = torch.as_tensor(tfused.s2d_kernel(kernel, D), device=cuda_device)
         x = torch.as_tensor(_noise(n, 7), device=cuda_device)
-        before = k1.LAUNCHES
+        before = k1.LAUNCHES["s2d_conv"]
         got = k1.s2d_conv(x, k2, gc, kernel.shape[-1], D, bf16=bf16)
         torch.cuda.synchronize()
-        assert k1.LAUNCHES == before + 1
+        assert k1.LAUNCHES["s2d_conv"] == before + 1
         want = k1.s2d_conv_plain(x, k2, gc, kernel.shape[-1], D, bf16=bf16)
         assert got.shape == want.shape
+        assert ((got - want).abs().max()
+                <= 4e-6 * want.abs().max()).item()
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("start", [0, 1], ids=["aligned", "offset"])
+    @pytest.mark.parametrize("num_carriers,n", [(16, 100_003),
+                                                ("pfb", 40_007)])
+    def test_k3_bit_equal_to_k1_on_card(self, cuda_device, num_carriers, n,
+                                        start):
+        """K3 sums every output in K1's order: bit-equal to K1 f32, so
+        within 4e-6 x max of the plain version.  The PFB kernel's pad_l =
+        767 and an input starting one sample into its storage put the
+        windows off the 16-byte grid of the async copies."""
+        kernel, gc, _ = _kernel(num_carriers)
+        L = kernel.shape[-1]
+        k2 = torch.as_tensor(tfused.s2d_kernel(kernel, D), device=cuda_device)
+        x = torch.as_tensor(_noise(n + start, 8), device=cuda_device)[start:]
+        before = dict(k1.LAUNCHES)
+        got = k1.s2d_conv_db(x, k2, gc, L, D)
+        torch.cuda.synchronize()
+        assert k1.LAUNCHES["s2d_conv_db"] == before["s2d_conv_db"] + 1
+        assert torch.equal(got, k1.s2d_conv(x, k2, gc, L, D))
+        want = k1.s2d_conv_plain(x, k2, gc, L, D)
+        assert ((got - want).abs().max()
+                <= 4e-6 * want.abs().max()).item()
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("bf16", [False, True])
+    @pytest.mark.parametrize("fold", [1, 4, 6])
+    def test_k1_of_matches_plain_on_card(self, cuda_device, fold, bf16):
+        """K1-of vs the folded plain version: f32 sum-order tolerance
+        (bf16 operands rounded identically on both sides)."""
+        kernel, gc, _ = _kernel(16)
+        L = kernel.shape[-1]
+        k_of = torch.as_tensor(tfused.s2d_of_kernel(kernel, D, fold),
+                               device=cuda_device)
+        x = torch.as_tensor(_noise(100_007, 9), device=cuda_device)
+        before = dict(k1.LAUNCHES)
+        got = k1.s2d_conv_of(x, k_of, gc, L, D, fold, bf16=bf16)
+        torch.cuda.synchronize()
+        assert k1.LAUNCHES["s2d_conv_of"] == before["s2d_conv_of"] + 1
+        want = k1.s2d_conv_of_plain(x, k_of, gc, L, D, fold, bf16=bf16)
+        assert got.shape == want.shape == (32, 10_001)
         assert ((got - want).abs().max()
                 <= 4e-6 * want.abs().max()).item()
 

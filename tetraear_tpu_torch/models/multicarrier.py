@@ -1,15 +1,19 @@
-"""Multicarrier full decode (BASELINE config 4), port of
-`tetraear_tpu.models.multicarrier`: one wideband IQ block -> per-carrier
-bits, dense sync scores and fixed-K frame candidates with soft-CRC
-verdicts, with only MAC/SDS parsing left to the host.
+"""Multicarrier full decode (BASELINE config 4) and the full-band PFB
+decode, port of `tetraear_tpu.models.multicarrier`: one wideband IQ
+block -> per-carrier bits, dense sync scores and fixed-K frame candidates
+with soft-CRC verdicts, with only MAC/SDS parsing left to the host.
 
 Stages of `MulticarrierFrontend.forward`:
-  1. the composite s2d conv (mixer + decimating FIR + channel FIR):
-     the plain conv (`s2d`) or K1 (`pallas`, `pallas_bf16`);
+  1. the composite s2d conv (mixer + decimating FIR + channel FIR), by
+     the conv named in CONV_VARIANTS: a plain F.conv1d version or a
+     hand-written kernel (K1, K1-of, K3);
   2. the real-pair demod tail (models.realpair._demod_from_pair);
   3. the candidates stage (extract_candidates): top-K sync positions,
      510-bit frame windows, batched soft CRC.
-`MulticarrierDecoder` is the host decode over the result.
+`PfbMulticarrierFrontend` runs the same stages over all 96 channels of
+the 25 kHz grid at 2.4 MS/s, its conv the polyphase filterbank as one
+dense conv (`ops.fused.pfb_kernel`, 192 rows).  `MulticarrierDecoder` is
+the host decode over either result.
 """
 
 from __future__ import annotations
@@ -24,18 +28,40 @@ from torch import nn
 
 from tetraear_tpu import constants as C
 from tetraear_tpu.config import ReceiverConfig
-from tetraear_tpu_torch.ops import fused
+from tetraear_tpu_torch.ops import fused, pfb
 from tetraear_tpu_torch.ops.crc import crc_tables, soft_crc_check_batch
-from tetraear_tpu_torch.ops.kernels.s2d_conv import s2d_conv, s2d_conv_plain
+from tetraear_tpu_torch.ops.kernels.s2d_conv import (
+    check_fold, parse_fold, s2d_conv, s2d_conv_db, s2d_conv_of,
+    s2d_conv_of_plain, s2d_conv_plain)
 from tetraear_tpu_torch.models.realpair import _demod_from_pair
 
-# --conv name -> what runs the composite conv.  The one table the
-# frontend and the CLI read; the names keep the reference's.
+class ConvVariant(NamedTuple):
+    runs: str    # what runs the composite conv
+    cli: bool    # a --conv choice of the reference's CLI
+    pfb: bool    # a variant of the reference's PfbMulticarrierFrontend
+
+
+# conv name -> ConvVariant; the names keep the reference's.  <N> is a
+# fold (2D * N <= 128).  The frontends and the CLI read this table.
 CONV_VARIANTS = {
-    "s2d": "plain F.conv1d, f32",
-    "pallas": "K1 (csrc/s2d_conv.cu), f32 operands",
-    "pallas_bf16": "K1 (csrc/s2d_conv.cu), bf16 operands, f32 accumulation",
+    "s2d": ConvVariant("plain F.conv1d, f32", cli=True, pfb=True),
+    "s2d_of": ConvVariant("plain F.conv1d with fold = max(1, min(8, "
+                          "128 // C2)) output positions folded into rows, "
+                          "f32", cli=True, pfb=False),
+    "pallas": ConvVariant("K1 (csrc/s2d_conv.cu), f32 operands",
+                          cli=True, pfb=True),
+    "pallas_bf16": ConvVariant("K1 (csrc/s2d_conv.cu), bf16 operands, f32 "
+                               "accumulation", cli=True, pfb=True),
+    "pallas_db": ConvVariant("K3 (csrc/s2d_conv_db.cu): K1 with the next "
+                             "tile's input prefetched by cp.async, f32",
+                             cli=False, pfb=True),
+    "pallas_of<N>": ConvVariant("K1-of (csrc/s2d_conv.cu, fold N), f32 "
+                                "operands", cli=False, pfb=False),
+    "pallas_of<N>_bf16": ConvVariant("K1-of (csrc/s2d_conv.cu, fold N), "
+                                     "bf16 operands, f32 accumulation",
+                                     cli=False, pfb=False),
 }
+PFB_CONV_VARIANTS = tuple(k for k, v in CONV_VARIANTS.items() if v.pfb)
 
 _SEG = 128   # segment of the hierarchical top-K
 
@@ -99,11 +125,28 @@ def extract_candidates(bits: torch.Tensor, corr: torch.Tensor,
     return top_pos.to(torch.int32), top_corr, valid, frames, crc_ok
 
 
+def conv_fold(conv: str, c2: int, decim: int) -> tuple:
+    """conv name -> (fold, bf16): fold 0 for the un-folded convs.  An
+    unknown name or a fold K1-of does not take raises."""
+    if conv.startswith("pallas_of"):
+        fold, bf16 = parse_fold(conv, "pallas_of")
+        check_fold(fold, decim)
+        return fold, bf16
+    if conv == "s2d_of":
+        return max(1, min(8, 128 // c2)), False
+    if conv not in CONV_VARIANTS or "<" in conv:
+        raise ValueError(f"unknown conv variant {conv!r}; valid: "
+                         + ", ".join(CONV_VARIANTS))
+    return 0, conv == "pallas_bf16"
+
+
 @dataclass(frozen=True)
 class FrontendState:
     """What the frontend convolves and rotates with: the (C2, 2D, Lp) s2d
     kernel, its composite length L and group delay gc, the decimation D,
-    and the per-carrier (cos, sin) of the deferred z rotation."""
+    and the per-carrier (cos, sin) of the deferred z rotation.  The
+    folded convs fold this kernel (ops.fused.fold_s2d_kernel), so every
+    conv of both packages convolves with the identical kernel."""
     kernel_s2d: np.ndarray
     gc: int
     L: int
@@ -125,16 +168,16 @@ def state_from_reference(kernel, gc: int, rot_cycles, decim: int,
 
 class MulticarrierFrontend(nn.Module):
     """Device pipeline for one carrier-offset set: composite conv ->
-    demod tail -> candidates.  Buffers: the s2d kernel, the z rotation
-    (cos, sin) and the CRC matrix.  `conv` is a key of CONV_VARIANTS."""
+    demod tail -> candidates.  Buffers: the s2d kernel (and its folded
+    form for the folded convs), the z rotation (cos, sin) and the CRC
+    matrix.  `conv` names a CONV_VARIANTS entry."""
 
     def __init__(self, state: FrontendState, *, sps: int, device,
                  num_candidates: int = 64, threshold: float = 0.80,
                  conv: str = "pallas_bf16"):
         super().__init__()
-        if conv not in CONV_VARIANTS:
-            raise ValueError(f"unknown conv variant {conv!r}; valid: "
-                             + ", ".join(CONV_VARIANTS))
+        self.fold, self.bf16 = conv_fold(conv, state.kernel_s2d.shape[0],
+                                         state.decim)
         self.conv = conv
         self.gc, self.L, self.decim = state.gc, state.L, state.decim
         self.sps = sps
@@ -143,6 +186,10 @@ class MulticarrierFrontend(nn.Module):
         device = torch.device(device)
         self.register_buffer("kernel_s2d", torch.as_tensor(
             state.kernel_s2d, dtype=torch.float32, device=device))
+        if self.fold:
+            self.register_buffer("kernel_of", torch.as_tensor(
+                fused.fold_s2d_kernel(state.kernel_s2d, self.fold),
+                device=device))
         self.register_buffer("z_cos", torch.as_tensor(state.z_cos,
                                                       device=device))
         self.register_buffer("z_sin", torch.as_tensor(state.z_sin,
@@ -184,12 +231,18 @@ class MulticarrierFrontend(nn.Module):
 
     def channelize(self, x: torch.Tensor) -> tuple:
         """(N,) complex64 on the module's device -> un-derotated (yr, yi)."""
+        args = (self.gc, self.L, self.decim)
         if self.conv == "s2d":
-            out = s2d_conv_plain(x, self.kernel_s2d, self.gc, self.L,
-                                 self.decim)
+            out = s2d_conv_plain(x, self.kernel_s2d, *args)
+        elif self.conv == "s2d_of":
+            out = s2d_conv_of_plain(x, self.kernel_of, *args, self.fold)
+        elif self.conv == "pallas_db":
+            out = s2d_conv_db(x, self.kernel_s2d, *args)
+        elif self.fold:
+            out = s2d_conv_of(x, self.kernel_of, *args, self.fold,
+                              bf16=self.bf16)
         else:
-            out = s2d_conv(x, self.kernel_s2d, self.gc, self.L, self.decim,
-                           bf16=self.conv == "pallas_bf16")
+            out = s2d_conv(x, self.kernel_s2d, *args, bf16=self.bf16)
         c = out.shape[0] // 2
         return out[:c], out[c:]
 
@@ -208,6 +261,50 @@ class MulticarrierFrontend(nn.Module):
             self.threshold, self.crc_a, self.crc_c0)
         return MulticarrierResult(res.bits, res.sync_corr, res.count, pos,
                                   ccorr, valid, frames, crc_ok)
+
+
+class PfbMulticarrierFrontend(MulticarrierFrontend):
+    """Full-band filterbank frontend (port of the reference's
+    `PfbMulticarrierFrontend` for its s2d, pallas, pallas_bf16 and
+    pallas_db variants): the polyphase DFT filterbank of all fs / 25 kHz
+    channels (96 at 2.4 MS/s) as one dense conv of 2 x 96 rows, then the
+    demod tail and candidates over every channel.  Row c is the channel
+    at `channel_offsets_hz()[c]` (fftfreq order)."""
+
+    def __init__(self, state: FrontendState, *, sample_rate_hz: float,
+                 conv: str = "pallas_bf16", **kwargs):
+        if conv not in PFB_CONV_VARIANTS:
+            raise ValueError(f"unknown PFB conv variant {conv!r}; valid: "
+                             + ", ".join(PFB_CONV_VARIANTS))
+        super().__init__(state, conv=conv, **kwargs)
+        self.sample_rate_hz = sample_rate_hz
+        self.num_channels = state.kernel_s2d.shape[0] // 2
+
+    @classmethod
+    def from_config(cls, config: ReceiverConfig | None = None,
+                    taps_per_branch: int = 8,
+                    **kwargs) -> "PfbMulticarrierFrontend":
+        """Build the filterbank kernel with this package's designers (the
+        reference's constructor recipe)."""
+        cfg = config or ReceiverConfig()
+        num_channels = int(round(cfg.sample_rate_hz / 25e3))
+        kernel, gc, rot = fused.pfb_kernel(num_channels, cfg.sample_rate_hz,
+                                           taps_per_branch=taps_per_branch)
+        return cls.from_reference(kernel, gc, rot, cfg, **kwargs)
+
+    @classmethod
+    def from_reference(cls, kernel, gc: int, rot_cycles,
+                       config: ReceiverConfig | None = None,
+                       **kwargs) -> "PfbMulticarrierFrontend":
+        """Build from a (kernel, gc, rot_cycles) triple of pfb_kernel."""
+        cfg = config or ReceiverConfig()
+        return super().from_reference(kernel, gc, rot_cycles, cfg,
+                                       sample_rate_hz=cfg.sample_rate_hz,
+                                       **kwargs)
+
+    def channel_offsets_hz(self) -> np.ndarray:
+        """Center frequency of each channel row (fftfreq order)."""
+        return pfb.channel_offsets_hz(self.num_channels, self.sample_rate_hz)
 
 
 class MulticarrierDecoder:

@@ -7,7 +7,9 @@ module imports jax); tests hold them `array_equal` to the reference.
 The derivation — the three LTI stages compose into one modulated
 kernel, and the stride-D conv becomes a stride-1 conv over 2D input
 channels — is in that module's docstrings.  The conv itself is
-`ops.kernels.s2d_conv`: K1 and its plain F.conv1d version.
+`ops.kernels.s2d_conv`: K1, K1-of and K3 and their plain F.conv1d
+versions.  `pfb_kernel` states the 96-channel full-band filterbank as the
+same kind of conv.
 """
 
 from __future__ import annotations
@@ -88,3 +90,35 @@ def s2d_kernel(kernel: np.ndarray, decim: int) -> np.ndarray:
     return np.ascontiguousarray(
         k4.transpose(0, 3, 1, 2)).reshape(c2, 2 * decim, lp)
 
+
+
+def pfb_kernel(num_channels: int, sample_rate_hz: float,
+               taps: np.ndarray | None = None,
+               taps_per_branch: int = 8) -> tuple:
+    """The full-band polyphase filterbank as one dense conv: K_c[k] = h[k]
+    e^{+j2pi c k / C} over the C fftfreq channels, h the prototype
+    lowpass.  Returns (kernel, gc = 0, rotation_cycles)."""
+    from tetraear_tpu_torch.ops import pfb
+    if taps is None:
+        taps = pfb.design_prototype(num_channels, taps_per_branch)
+    offs = pfb.channel_offsets_hz(num_channels, sample_rate_hz)
+    kernel, rot = modulated_kernel(np.asarray(taps), offs, sample_rate_hz)
+    return kernel, 0, rot
+
+
+def fold_s2d_kernel(k2: np.ndarray, fold: int) -> np.ndarray:
+    """(C2, 2D, Lp) s2d kernel -> (C2*fold, 2D, Lp+fold-1) output-folded
+    kernel: row c*fold + r holds K2[c] delayed by r taps, so a stride-fold
+    conv gives out[c, w*fold + r] in row c*fold + r."""
+    k2 = np.asarray(k2, np.float32)
+    c2, ich, lp = k2.shape
+    k3 = np.zeros((c2, fold, ich, lp + fold - 1), np.float32)
+    for r in range(fold):
+        k3[:, r, :, r:r + lp] = k2
+    return k3.reshape(c2 * fold, ich, lp + fold - 1)
+
+
+def s2d_of_kernel(kernel: np.ndarray, decim: int, fold: int) -> np.ndarray:
+    """(2C, 2, L) composite kernel -> (2C*fold, 2D, Lp+fold-1) output-
+    folded s2d kernel (the reference's s2d_of_kernel)."""
+    return fold_s2d_kernel(s2d_kernel(kernel, decim), fold)

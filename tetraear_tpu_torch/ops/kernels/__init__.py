@@ -44,13 +44,18 @@ def _nvcc() -> str:
 
 @functools.lru_cache(maxsize=None)
 def build(name: str) -> tuple:
-    """Compile csrc/<name>.cu (once per process and source version) and
-    return (ctypes.CDLL, build report).  The report holds the build time
-    and nvcc's -Xptxas -v lines (registers, shared memory, spills); it is
-    empty when an earlier process already built this source."""
+    """Compile csrc/<name>.cu (once per process and version of the source
+    and the csrc/*.cuh headers) and return (ctypes.CDLL, build report).
+    The report holds the build time and nvcc's -Xptxas -v lines
+    (registers, shared memory, spills); it is empty when an earlier
+    process already built this source.  Threads may build different
+    sources at once: each is its own nvcc process."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    # the shared headers of csrc/ are part of every source's version
+    parts = [src.read_bytes(), *(h.read_bytes()
+                                 for h in sorted(CSRC.glob("*.cuh"))),
+             " ".join(NVCC_FLAGS).encode()]
+    digest = hashlib.sha256(b"\0".join(parts)).hexdigest()[:16]
     lib_path = BUILD_DIR / f"lib{name}_{digest}.so"
     report = ""
     if not lib_path.exists():

@@ -1,11 +1,13 @@
 """Command line of the port: the wideband multicarrier `decode`.
 
-    python -m tetraear_tpu_torch decode <iq> --carriers N
-        [--conv s2d|pallas|pallas_bf16] [-o out.jsonl] [--chunk-size S]
-        [--device cuda|cpu]
+    python -m tetraear_tpu_torch decode <iq> --carriers N [--pfb]
+        [--conv s2d|s2d_of|pallas|pallas_bf16] [-o out.jsonl]
+        [--chunk-size S] [--device cuda|cpu]
 
-Mirrors `tetraear_tpu decode --carriers N` (tetraear_tpu/ui/cli.py
-_decode_multicarrier): chunks read with FileReplaySource, the last chunk
+Mirrors `tetraear_tpu decode --carriers N [--pfb]` (tetraear_tpu/ui/cli.py
+_decode_multicarrier): N carriers of the 25 kHz grid, or with --pfb every
+channel of the band (96 at 2.4 MS/s, a frame's `carrier` its fftfreq
+channel index); chunks read with FileReplaySource, the last chunk
 zero-padded to full length, the device result of chunk i+1 queued before
 chunk i is decoded on the host, and the same [DONE]/[PERF]/[CARRIERS]
 lines.  The device is explicit: `--device` or, by default, cuda when a
@@ -23,9 +25,12 @@ import torch
 
 from tetraear_tpu_torch.models.multicarrier import CONV_VARIANTS
 
-_LATER = {"pfb": "--pfb (the 96-channel filterbank) is not ported yet "
-                 "(ROADMAP.md Queue 1, Slice 3)",
-          "afc": "--afc (grid-comb AFC) is not ported yet "
+# the reference CLI's --conv choices that are ported ("auto", "s2d_mono"
+# and "s2d_hb16" are not); pallas_db and pallas_of<N> are reached through
+# the frontends' constructors, as in the reference
+CLI_CONVS = tuple(k for k, v in CONV_VARIANTS.items() if v.cli)
+
+_LATER = {"afc": "--afc (grid-comb AFC) is not ported yet "
                  "(ROADMAP.md Queue 1, Slice 4)"}
 
 
@@ -42,8 +47,8 @@ def cmd_decode(args) -> int:
     import numpy as np
     from tetraear_tpu.io.recorder import JsonlFrameRecorder
     from tetraear_tpu.io.replay import FileReplaySource
-    from tetraear_tpu_torch.models.multicarrier import (MulticarrierDecoder,
-                                                        MulticarrierFrontend)
+    from tetraear_tpu_torch.models.multicarrier import (
+        MulticarrierDecoder, MulticarrierFrontend, PfbMulticarrierFrontend)
     from tetraear_tpu_torch.ops.channelizer import carrier_grid
 
     for flag, msg in _LATER.items():
@@ -53,11 +58,14 @@ def cmd_decode(args) -> int:
         raise SystemExit("--carriers N (N > 0) is required: the "
                          "single-carrier decode is not ported yet "
                          "(ROADMAP.md Queue 1, Slice 2)")
+    if args.pfb and not CONV_VARIANTS[args.conv].pfb:
+        raise SystemExit(f"--conv {args.conv} is a 16-carrier variant; the "
+                         "PFB supports s2d, pallas, pallas_bf16")
     dev = _device(args.device)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "host"
-    conv = CONV_VARIANTS[args.conv]
-    if dev.type == "cpu" and args.conv != "s2d":
-        conv += "; K1's plain version on the CPU"
+    conv = CONV_VARIANTS[args.conv].runs
+    if dev.type == "cpu" and args.conv.startswith("pallas"):
+        conv += "; the kernel's plain version on the CPU"
     print(f"[DEVICE] {dev} ({name}), conv {args.conv}: {conv}")
 
     source = FileReplaySource(args.iq_file,
@@ -65,9 +73,13 @@ def cmd_decode(args) -> int:
     if not source.open():
         print(f"[FAIL] Could not open {args.iq_file}")
         return 1
-    offsets = carrier_grid(args.carriers)
-    mc = MulticarrierFrontend.from_offsets(offsets, device=dev,
-                                           conv=args.conv)
+    if args.pfb:
+        # full-band polyphase filterbank: every 25 kHz channel at once
+        mc = PfbMulticarrierFrontend.from_config(device=dev, conv=args.conv)
+        args.carriers = mc.num_channels
+    else:
+        mc = MulticarrierFrontend.from_offsets(carrier_grid(args.carriers),
+                                               device=dev, conv=args.conv)
     dec = MulticarrierDecoder(args.carriers, auto_decrypt=args.auto_decrypt)
     out_path = args.out_jsonl or (str(Path(args.iq_file).with_suffix(""))
                                   + "_frames.jsonl")
@@ -128,16 +140,17 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--chunk-size", type=int, default=256 * 1024)
     d.add_argument("--carriers", type=int, default=0,
                    help="decode N carriers of the 25 kHz grid")
-    d.add_argument("--conv", choices=tuple(CONV_VARIANTS),
-                   default="pallas_bf16",
+    d.add_argument("--conv", choices=CLI_CONVS, default="pallas_bf16",
                    help="composite conv: " + "; ".join(
-                       f"{k} = {v}" for k, v in CONV_VARIANTS.items()))
+                       f"{k} = {CONV_VARIANTS[k].runs}" for k in CLI_CONVS))
     d.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda if available, "
                         "else cpu)")
     d.add_argument("--no-bits", action="store_true",
                    help="omit raw bits from the JSONL")
-    d.add_argument("--pfb", action="store_true", help="not ported yet")
+    d.add_argument("--pfb", action="store_true",
+                   help="(with --carriers) polyphase filterbank: decode "
+                        "every 25 kHz channel in the band (96 at 2.4 MS/s)")
     d.add_argument("--afc", action="store_true", help="not ported yet")
     d.add_argument("-o", "--out-jsonl", type=str, default=None)
     d.set_defaults(func=cmd_decode)

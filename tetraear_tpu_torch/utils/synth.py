@@ -7,34 +7,57 @@ import numpy as np
 
 from tetraear_tpu_torch.hostref import synth
 from tetraear_tpu_torch.ops.channelizer import carrier_grid
+from tetraear_tpu_torch.ops.pfb import channel_offsets_hz
 
 
-def planted_wideband(grid_indices, num_carriers: int = 16,
-                     sample_rate_hz: float = 2.4e6,
-                     num_frames: int = 4) -> tuple:
-    """Golden-slot TETRA streams on carriers of `carrier_grid(num_carriers)`.
-
-    Carrier k (a grid index) carries `num_frames` MAC-RESOURCE slots with
-    the SDS text "CARRIER k MSG" (stream seed k), at 130 samples per
-    symbol, mixed to its grid offset — the recipe of the reference's
-    tests/unit/test_fused_frontend.py:TestDecisionEquivalence._wideband.
-    Returns (x complex64, {k: "[TXT] CARRIER k MSG"})."""
+def planted(carriers: dict, sample_rate_hz: float = 2.4e6,
+            num_frames: int = 4) -> np.ndarray:
+    """Golden-slot TETRA streams mixed to their offsets: `carriers` maps
+    offset_hz -> (stream seed, SDS text payload).  Each carries
+    `num_frames` MAC-RESOURCE slots at 130 samples per symbol — the recipe
+    of the reference's tests/unit/test_fused_frontend.py:
+    TestDecisionEquivalence._wideband and test_pfb.py:TestPfbFrontend."""
     sy = synth()
-    offsets = carrier_grid(num_carriers)
     fs = sample_rate_hz
     x = None
-    want = {}
-    for k in grid_indices:
-        st = sy.make_stream_bits(
-            num_frames=num_frames, lead_bits=64, seed=k, golden=True,
-            payload=f"CARRIER {k} MSG".encode()[:20])
+    for off, (seed, payload) in carriers.items():
+        st = sy.make_stream_bits(num_frames=num_frames, lead_bits=64,
+                                 seed=seed, golden=True,
+                                 payload=payload.encode()[:20])
         ph = sy.synthesize_symbol_phasors(sy.bits_to_symbols(st),
                                           mapping="ref")
         iq = sy.upsample_hold(ph, fs, fs / 130.0)
         if x is None:
             x = np.zeros(len(iq), np.complex64)
         t = np.arange(len(x)) / fs
-        x += (iq[:len(x)] * np.exp(2j * np.pi * float(offsets[k]) * t)
+        x += (iq[:len(x)] * np.exp(2j * np.pi * float(off) * t)
               ).astype(np.complex64)
-        want[k] = f"[TXT] CARRIER {k} MSG"
+    return x
+
+
+def planted_wideband(grid_indices, num_carriers: int = 16,
+                     sample_rate_hz: float = 2.4e6,
+                     num_frames: int = 4) -> tuple:
+    """Carrier k (a grid index of `carrier_grid(num_carriers)`) carries
+    the SDS text "CARRIER k MSG" (stream seed k).  Returns (x complex64,
+    {k: "[TXT] CARRIER k MSG"})."""
+    offsets = carrier_grid(num_carriers)
+    x = planted({float(offsets[k]): (k, f"CARRIER {k} MSG")
+                 for k in grid_indices}, sample_rate_hz, num_frames)
+    return x, {k: f"[TXT] CARRIER {k} MSG" for k in grid_indices}
+
+
+def planted_pfb(offsets_hz=(-50e3, 0.0, 75e3), sample_rate_hz: float = 2.4e6,
+                num_frames: int = 4) -> tuple:
+    """The full-band filterbank's planted signal (the reference's
+    test_pfb.py:TestPfbFrontend recipe): the i-th offset (a multiple of
+    25 kHz) carries "PFB CH i+1" (stream seed i+1).  Returns (x
+    complex64, {fftfreq channel index: "[TXT] PFB CH i+1"})."""
+    num_channels = int(round(sample_rate_hz / 25e3))
+    chans = channel_offsets_hz(num_channels, sample_rate_hz)
+    carriers = {off: (i + 1, f"PFB CH {i + 1}")
+                for i, off in enumerate(offsets_hz)}
+    x = planted(carriers, sample_rate_hz, num_frames)
+    want = {int(np.argmin(np.abs(chans - off))): f"[TXT] {payload}"
+            for off, (_seed, payload) in carriers.items()}
     return x, want
