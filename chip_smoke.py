@@ -5,9 +5,10 @@
 Phases (each prints its results; the first failure exits nonzero):
   1. device   refuse to run without CUDA; print the card's name and
               power limit as nvidia-smi reports them
-  2. build    compile K1 / K1-of (tetraear_tpu_torch/csrc/s2d_conv.cu) and
-              K3 (csrc/s2d_conv_db.cu) with nvcc for sm_90a, one nvcc per
-              source, both at once; print the build times and ptxas's
+  2. build    compile K1 / K1-of (tetraear_tpu_torch/csrc/s2d_conv.cu),
+              K3 (csrc/s2d_conv_db.cu), K4 (csrc/s2d_conv_dt.cu) and K5
+              (csrc/fused_channelize.cu) with nvcc for sm_90a, one nvcc per
+              source, all at once; print the build times and ptxas's
               report
   3. kernel   each kernel against its plain PyTorch version on the card:
               K1, f32 and bf16, at C2 = 32 with the bench's n = 8,319,936,
@@ -18,24 +19,37 @@ Phases (each prints its results; the first failure exits nonzero):
               one sample into their storage (off the 16-byte grid of its
               async copies), each bit-equal to K1 f32; K1-of at
               fold 4 (f32 and bf16) at the bench shape and folds 6 and 1
-              at the ragged n
+              at the ragged n; K4 (dt, dt_bf16) at the bench shape and on
+              the filterbank kernel at the ragged n; K5 against
+              mix_to_baseband + fir_decimate at carrier_grid(16), the
+              frontend's 121 taps, the bench n and start 0, and at the
+              ragged n and start 10^7, both also against a float64
+              oracle of the same f32 phases on a sample of outputs
   4. decode   the main paths through the entry points a user calls, each
               on a planted signal, every launch count set to 0 just before
               and read just after: `tetraear_tpu_torch.ui.cli.main(
               ["decode", f, "--carriers", "16", "--conv", "pallas_bf16"])`
               and the same with "--pfb" (all 96 channels; texts on their
               fftfreq channels), both launching K1;
-              `PfbMulticarrierFrontend(conv="pallas_db")` (K3) and
-              `MulticarrierFrontend(conv="pallas_of4_bf16")` (K1-of)
-              through `MulticarrierDecoder`.  Every planted SDS text must
-              come back on its channel, and each path's kernel must have
-              launched
+              `PfbMulticarrierFrontend(conv="pallas_db")` (K3),
+              `MulticarrierFrontend(conv="pallas_of4_bf16")` (K1-of), the
+              staged `StagedMulticarrierFrontend` (K5),
+              `RealPairFrontend(num_candidates=64)` on the bench's
+              grid-aligned offsets, the gather-form `GatherPfbFrontend`
+              and the op-level `pallas_s2d_conv(variant="dt")` (K4) with
+              the real-pair tail, all through `MulticarrierDecoder`.
+              Every planted SDS text must come back on its channel, and
+              each path's kernel must have launched
   5. timing   at n = 8,319,936, K = 64, threshold 0.80, with CUDA events:
-              K1, K3 and K1-of (fold 4) against their plain versions and
-              K1, at C2 = 32 and (K1, K3) on the filterbank kernel, and
+              K1, K3, K1-of (fold 4) and K4 against their plain versions
+              and K1, at C2 = 32 and (K1, K3) on the filterbank kernel;
               the 16-carrier (pallas_bf16) and full-band (pallas_bf16,
               pallas_db) frontends' stages, end-to-end rate, device busy
-              share (torch.profiler), peak memory and host decode
+              share (torch.profiler), peak memory and host decode; K5
+              against the plain mixer + FIR with the peak memory of
+              both, and with every phase on sincosf's fast path; the
+              staged frontend's stages; RealPairFrontend(64)
+              and the gather-form full band end to end
 
 The line before the last is a JSON object with each kernel's route,
 source, launches in phase 4, error and times; the last line is
@@ -53,9 +67,12 @@ from pathlib import Path
 
 BENCH_N = 8_319_936          # bench.py's n per block
 RAGGED_N = 1_000_007
-TOL = 4e-6                   # x max|plain|: f32 sum order only
+TOL = 4e-6                   # x max|plain|: f32 sum order only (K5:
+                             # the 121-tap FIR's, plus the <= 2 ulp spread
+                             # of sincosf against torch.sin / torch.cos)
 BF16_TOL = 1e-2              # x max|f32 plain|: bf16 operand rounding
 PLANTED = (3, 8, 12)         # grid indices of carrier_grid(16)
+K5_START = 10_000_000        # a start index where |phase| reaches ~5e6 rad
 KERNELS = {                  # wrapper -> (source, TPU kernel it replaces)
     "s2d_conv": ("tetraear_tpu_torch/csrc/s2d_conv.cu",
                  "tetraear_tpu/ops/pallas/s2d_conv.py:71"),
@@ -63,6 +80,10 @@ KERNELS = {                  # wrapper -> (source, TPU kernel it replaces)
                     "tetraear_tpu/ops/pallas/s2d_conv.py:371"),
     "s2d_conv_db": ("tetraear_tpu_torch/csrc/s2d_conv_db.cu",
                     "tetraear_tpu/ops/pallas/s2d_conv.py:162"),
+    "s2d_conv_dt": ("tetraear_tpu_torch/csrc/s2d_conv_dt.cu",
+                    "tetraear_tpu/ops/pallas/s2d_conv.py:108"),
+    "fused_channelize": ("tetraear_tpu_torch/csrc/fused_channelize.cu",
+                         "tetraear_tpu/ops/pallas/fused_channelize.py:59"),
 }
 
 
@@ -89,8 +110,9 @@ def phase_device():
 
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
-    from tetraear_tpu_torch.ops.kernels import KernelBuildError, build
-    sources = ("s2d_conv", "s2d_conv_db")
+    from tetraear_tpu_torch.ops.kernels import (SOURCES, KernelBuildError,
+                                                build)
+    sources = SOURCES
     t0 = time.perf_counter()
     try:
         with ThreadPoolExecutor(len(sources)) as pool:
@@ -140,11 +162,11 @@ def _held(tag: str, name: str, got, want, bound: float) -> float:
 def _launched(wrapper: str, fn):
     """fn() with one launch of `wrapper` counted, synchronized."""
     import torch
-    from tetraear_tpu_torch.ops.kernels import s2d_conv as kc
-    before = kc.LAUNCHES[wrapper]
+    from tetraear_tpu_torch.ops.kernels import launches
+    before = launches()[wrapper]
     out = fn()
     torch.cuda.synchronize()
-    if kc.LAUNCHES[wrapper] != before + 1:
+    if launches()[wrapper] != before + 1:
         fail("kernel", f"the {wrapper} launch counter did not move")
     return out
 
@@ -208,6 +230,96 @@ def phase_kernel(device) -> dict:
             if bf16:
                 _held(tag + " vs f32", "K1-of", got, f32, BF16_TOL)
         del x, got, want, f32
+    worst["s2d_conv_dt"] = kernel_k4(device)
+    worst["fused_channelize"] = kernel_k5(device)
+    return worst
+
+
+def kernel_k4(device) -> float:
+    """K4 (dt, dt_bf16) against the plain conv with K1's bounds: the f32
+    sum-order bound (bf16 operands rounded alike on both sides) and, for
+    bf16, BF16_TOL of the f32 result.  The filterbank kernel's 192 rows
+    and pad_l = 767 at the ragged n."""
+    from tetraear_tpu_torch.ops.kernels import s2d_conv as kc
+    worst = 0.0
+    for num_carriers, n in ((16, BENCH_N), ("pfb", RAGGED_N)):
+        x, k2, gc, L, decim = _case(num_carriers, n, 5, device)
+        f32 = kc.s2d_conv_plain(x, k2, gc, L, decim)
+        for bf16 in (False, True):
+            got = _launched("s2d_conv_dt", lambda: kc.s2d_conv_dt(
+                x, k2, gc, L, decim, bf16=bf16))
+            want = (kc.s2d_conv_plain(x, k2, gc, L, decim, bf16=True)
+                    if bf16 else f32)
+            tag = (f"K4 {num_carriers} C2={k2.shape[0]} gc={gc} n={n} "
+                   f"{'dt_bf16' if bf16 else 'dt'}")
+            worst = max(worst, _held(tag, "K4", got, want, TOL))
+            if bf16:
+                _held(tag + " vs f32", "K4", got, f32, BF16_TOL)
+        del x, got, want, f32
+    return worst
+
+
+def _k5_oracle(x, offsets, taps, fs: float, decim: int, start: int,
+               m_idx):
+    """channelize in float64 on the host at outputs m_idx, from the same
+    f32 phases (channelizer.mixer_phase, the plain version's and K5's):
+    (C, len(m_idx)) complex128."""
+    import numpy as np
+    from tetraear_tpu_torch.ops.channelizer import mixer_phase
+    n = x.shape[0]
+    L = len(taps)
+    q = (m_idx[:, None] * decim + (L - 1) // 2 - np.arange(L)[None, :])
+    ok = (q >= 0) & (q < n)
+    qc = np.clip(q, 0, n - 1)
+    ph = mixer_phase(offsets, n, fs, start)[:, qc.ravel()]
+    ph = ph.cpu().numpy().astype(np.float64).reshape(len(offsets), *q.shape)
+    xs = x.cpu().numpy()[qc].astype(np.complex128) * ok
+    taps64 = taps.cpu().numpy().astype(np.float64)
+    return np.einsum("k,cmk->cm", taps64, xs[None] * np.exp(1j * ph))
+
+
+def kernel_k5(device) -> float:
+    """K5 against mix_to_baseband + fir_decimate on the card, both with
+    the same f32 phases: the FIR's f32 sum order plus the <= 2 ulp spread
+    of sincosf against torch.sin / torch.cos, within TOL x max|plain|.
+    Both are also held against a float64 oracle of the same phases on
+    256 outputs, which says which of the two is off if they disagree."""
+    import numpy as np
+    import torch
+    from tetraear_tpu_torch.models.realpair import staged_state
+    from tetraear_tpu_torch.ops.channelizer import carrier_grid
+    from tetraear_tpu_torch.ops.kernels import fused_channelize as k5
+    state = staged_state(carrier_grid(16))
+    offs = torch.as_tensor(state.offsets_hz, device=device)
+    taps = torch.as_tensor(state.taps_d, device=device)
+    fs = state.sample_rate_hz
+    worst = 0.0
+    for n, start in ((BENCH_N, 0), (RAGGED_N, K5_START)):
+        gen = torch.Generator(device=device).manual_seed(6)
+        x = torch.randn(n, dtype=torch.complex64, device=device,
+                        generator=gen) * 0.1
+        got = _launched("fused_channelize", lambda: k5.fused_channelize(
+            x, offs, fs, state.decim, taps, start))
+        want = k5.fused_channelize_plain(x, offs, fs, state.decim, taps,
+                                         start)
+        m_idx = np.random.default_rng(start).choice(got.shape[1], 256,
+                                                    replace=False)
+        oracle = _k5_oracle(x, offs, taps, fs, state.decim, start, m_idx)
+        errs = {name: np.abs(y[:, m_idx].cpu().numpy() - oracle).max()
+                for name, y in (("K5", got), ("plain", want))}
+        tag = f"K5 16 carriers L={len(taps)} n={n} start={start}"
+        print(f"[kernel] {tag}: max|phase| = "
+              f"{2 * np.pi * offs.abs().max().item() * (start + n) / fs:.3e}"
+              " rad; on 256 "
+              f"outputs max|K5-f64 oracle| = {errs['K5']:.3e}, "
+              f"max|plain-f64 oracle| = {errs['plain']:.3e}")
+        bound = TOL * want.abs().max().item()
+        if (got - want).abs().max().item() > bound:
+            off = max(errs, key=errs.get)
+            print(f"[kernel] {tag}: K5 and plain disagree; {off} is the "
+                  "farther from the float64 oracle")
+        worst = max(worst, _held(tag, "K5", got, want, TOL))
+        del x, got, want
     return worst
 
 
@@ -229,16 +341,16 @@ def _check_texts(tag: str, want: dict, got: dict) -> None:
             fail("decode", f"{tag}: {text!r} not decoded on channel {k}")
 
 
-def _path(tag: str, wrapper: str, run) -> dict:
-    """Runs one main path with every launch count set to 0 just before
-    and read just after; the path's kernel must have launched."""
-    from tetraear_tpu_torch.ops.kernels import s2d_conv as kc
-    for name in kc.LAUNCHES:
-        kc.LAUNCHES[name] = 0
+def _path(tag: str, wrapper, run) -> dict:
+    """Runs one main path with every kernel module's launch counts set to
+    0 just before and read just after; the path's kernel (None for a path
+    of plain PyTorch) must have launched."""
+    from tetraear_tpu_torch.ops.kernels import launches, reset_launches
+    reset_launches()
     run()
-    counts = dict(kc.LAUNCHES)
+    counts = launches()
     print(f"[decode] {tag}: launches {counts}")
-    if counts[wrapper] == 0:
+    if wrapper is not None and counts[wrapper] == 0:
         fail("decode", f"{tag} never launched {wrapper}")
     return counts
 
@@ -260,10 +372,16 @@ def _cli_run(tag: str, argv: list, x, want: dict) -> None:
 
 
 def phase_decode(device) -> dict:
+    import torch
     from tetraear_tpu_torch.models.multicarrier import (
-        MulticarrierDecoder, MulticarrierFrontend, PfbMulticarrierFrontend)
+        GatherPfbFrontend, MulticarrierDecoder, MulticarrierFrontend,
+        PfbMulticarrierFrontend, StagedMulticarrierFrontend)
+    from tetraear_tpu_torch.models.realpair import (RealPairFrontend,
+                                                    _demod_from_pair)
     from tetraear_tpu_torch.ops.channelizer import carrier_grid
-    from tetraear_tpu_torch.utils.synth import planted_pfb, planted_wideband
+    from tetraear_tpu_torch.ops.kernels.s2d_conv import pallas_s2d_conv
+    from tetraear_tpu_torch.utils.synth import (planted_grid, planted_pfb,
+                                                planted_wideband)
     x16, want16 = planted_wideband(PLANTED)
     xpfb, wantpfb = planted_pfb()
     launches = dict.fromkeys(KERNELS, 0)
@@ -293,6 +411,33 @@ def phase_decode(device) -> dict:
     add(_path("MulticarrierFrontend pallas_of4_bf16", "s2d_conv_of",
               lambda: module_run("16 carriers pallas_of4_bf16", mc, x16, 16,
                                  want16)))
+    staged = StagedMulticarrierFrontend.from_offsets(carrier_grid(16),
+                                                     device=device)
+    add(_path("StagedMulticarrierFrontend (fused=False)", "fused_channelize",
+              lambda: module_run("16 carriers staged", staged, x16, 16,
+                                 want16)))
+    xg, offs_g, want_g = planted_grid(PLANTED)
+    rp = RealPairFrontend.from_offsets(offs_g, device=device,
+                                       num_candidates=64)
+    add(_path("RealPairFrontend(64)", None, lambda: module_run(
+        "real-pair 16 carriers", rp, xg, 16, want_g)))
+    gather = GatherPfbFrontend(device=device)
+    add(_path("GatherPfbFrontend (PFB fused=False)", None, lambda: module_run(
+        "pfb gather", gather, xpfb, 96, wantpfb)))
+
+    def dt_run():
+        # the op-level entry point of K4, then the real-pair tail
+        x = torch.as_tensor(x16, device=device)
+        out = pallas_s2d_conv(x, mc.kernel_s2d, mc.gc, mc.L, mc.decim,
+                              variant="dt")
+        res = _demod_from_pair(out[:16], out[16:], mc.sps,
+                               z_rot=(mc.z_cos, mc.z_sin))
+        frames = MulticarrierDecoder(16).decode(
+            mc.candidates(res.bits, res.sync_corr, res.count))
+        _check_texts("16 carriers pallas_s2d_conv dt", want16,
+                     _texts(frames))
+    add(_path("pallas_s2d_conv(variant='dt') + real-pair tail",
+              "s2d_conv_dt", dt_run))
     return launches
 
 
@@ -465,7 +610,117 @@ def phase_timing(device, card: str) -> dict:
             iters=6)
         del pfb, x
         torch.cuda.empty_cache()
+    phase_timing_k4(device, card, t)
+    phase_timing_staged(device, card, t)
     return t
+
+
+def phase_timing_k4(device, card: str, t: dict) -> None:
+    """K4 against its plain version and against K1 at C2 = 32."""
+    from tetraear_tpu_torch.ops.kernels import s2d_conv as kc
+    x, k2, gc, L, decim = _case(16, BENCH_N, 2, device)
+    for bf16 in (False, True):
+        tag = "bf16" if bf16 else "f32"
+        for key, other, name in (
+                ("plain", lambda: kc.s2d_conv_plain(x, k2, gc, L, decim,
+                                                    bf16=bf16),
+                 "plain F.conv1d"),
+                ("k1", lambda: kc.s2d_conv(x, k2, gc, L, decim, bf16=bf16),
+                 f"K1 {tag}")):
+            ms, other_ms, runs = _pair_ms(
+                lambda: kc.s2d_conv_dt(x, k2, gc, L, decim, bf16=bf16),
+                other, 10)
+            t.setdefault(f"k4_{tag}", ms)
+            t[f"k4_{tag}_{key}"] = other_ms
+            print(f"[timing] {card}: K4 {'dt_bf16' if bf16 else 'dt'} "
+                  f"{runs[0]:.3f} / {runs[1]:.3f} ms, {name} {runs[2]:.3f} / "
+                  f"{runs[3]:.3f} ms")
+
+
+def _peak_mib(fn) -> float:
+    """Peak device memory fn() allocates above what is allocated before."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def _e2e(tag: str, fn, n: int, card: str, iters: int) -> float:
+    """End-to-end ms per block, rate, peak memory and busy share."""
+    ms = _time_ms(fn, iters, warmup=1)
+    peak = _peak_mib(fn)
+    busy_ms, top = _device_busy_ms(fn, iters=2)
+    busy = ("not measured" if busy_ms is None else
+            f"{busy_ms:.3f} ms ({busy_ms / ms:.1%}); top kernel "
+            f"{top[0][1]:.3f} ms {top[0][0][:60]}")
+    print(f"[timing] {card}: {tag} (n={n}, K=64) {ms:.3f} ms/block = "
+          f"{n / (ms / 1e3):,.0f} samples/s; peak device memory above the "
+          f"input {peak:.0f} MiB; device busy {busy}")
+    return ms
+
+
+def phase_timing_staged(device, card: str, t: dict) -> None:
+    """K5 against the plain mixer + FIR with the peak memory of both, the
+    staged frontend's stages, and the real-pair and gather-form
+    frontends end to end, at the bench n."""
+    import torch
+    from tetraear_tpu_torch.models.multicarrier import (
+        GatherPfbFrontend, StagedMulticarrierFrontend, _demod_front)
+    from tetraear_tpu_torch.models.realpair import RealPairFrontend
+    from tetraear_tpu_torch.ops.channelizer import carrier_grid
+    from tetraear_tpu_torch.ops.fir import fir_filter_same
+    from tetraear_tpu_torch.ops.kernels import fused_channelize as k5
+    x = _case(16, BENCH_N, 7, device)[0]
+    mc = StagedMulticarrierFrontend.from_offsets(carrier_grid(16),
+                                                 device=device)
+    args = (mc.offsets_hz, mc.sample_rate_hz, mc.decim, mc.taps_d)
+    ms, plain_ms, runs = _pair_ms(lambda: k5.fused_channelize(x, *args),
+                                  lambda: k5.fused_channelize_plain(x, *args))
+    t["k5"], t["k5_plain"] = ms, plain_ms
+    peak = _peak_mib(lambda: k5.fused_channelize(x, *args))
+    plain_peak = _peak_mib(lambda: k5.fused_channelize_plain(x, *args))
+    print(f"[timing] {card}: K5 16 carriers L={len(mc.taps_d)} "
+          f"{runs[0]:.3f} / {runs[1]:.3f} ms, plain mix_to_baseband + "
+          f"fir_decimate {runs[2]:.3f} / {runs[3]:.3f} ms; peak device "
+          f"memory above the input {peak:.0f} MiB vs {plain_peak:.0f} MiB")
+    busy_ms, top = _device_busy_ms(lambda: k5.fused_channelize(x, *args))
+    if busy_ms is not None:
+        print(f"[timing]   K5 device time {busy_ms:.3f} ms: "
+              + ", ".join(f"{name[:40]} {v:.3f}" for name, v in top[:3]))
+    # the same launch with every |phase| under 105615 rad, where sincosf
+    # never takes its slow reduction (16 carriers at 1 kHz: |phase| <=
+    # 2.2e4 rad over the block): the difference is the slow path's cost
+    low = torch.full_like(mc.offsets_hz, 1e3)
+    fast_ms = _time_ms(lambda: k5.fused_channelize(x, low, *args[1:]))
+    print(f"[timing] {card}: K5 with every phase on sincosf's fast path "
+          f"{fast_ms:.3f} ms (the bench carriers' {ms:.3f} ms)")
+    t["k5_fast_path"] = fast_ms
+    y = k5.fused_channelize(x, *args)
+    yc = fir_filter_same(y, mc.taps_c)
+    bits, corr, count = _demod_front(yc, mc.sps)
+    stages = {"channel FIR": lambda: fir_filter_same(y, mc.taps_c),
+              "demod front": lambda: _demod_front(yc, mc.sps),
+              "candidates": lambda: mc.candidates(bits, corr, count)}
+    print(f"[timing] {card}: staged frontend stages: " + ", ".join(
+        f"{name} {_time_ms(fn, 6):.3f} ms" for name, fn in stages.items()))
+    del y, yc, bits, corr, count
+    t["staged"] = _e2e("staged frontend (K5), 16 carriers", lambda: mc(x),
+                       BENCH_N, card, 6)
+    del mc
+    offs = ((torch.arange(16) - 8) * 25e3).numpy()
+    rp = RealPairFrontend.from_offsets(offs, device=device,
+                                       num_candidates=64)
+    t["realpair64"] = _e2e("RealPairFrontend(64), 16 carriers",
+                           lambda: rp(x), BENCH_N, card, 6)
+    del rp
+    gather = GatherPfbFrontend(device=device)
+    t["gather"] = _e2e("gather-form full band, 96 channels",
+                       lambda: gather(x), BENCH_N, card, 3)
+    del gather, x
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -478,13 +733,21 @@ def main() -> int:
     device = torch.device("cuda:0")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
     phase_build()
+    t1 = time.perf_counter()
     errs = phase_kernel(device)
+    t2 = time.perf_counter()
     launches = phase_decode(device)
+    t3 = time.perf_counter()
     t = phase_timing(device, card)
+    print(f"[timing] phases: build {t1 - t0:.1f} s, kernel {t2 - t1:.1f} s, "
+          f"decode {t3 - t2:.1f} s, timing {time.perf_counter() - t3:.1f} s")
     times = {"s2d_conv": ("k1_bf16", "k1_bf16_plain"),
              "s2d_conv_of": ("k1of_bf16", "k1of_bf16_plain"),
-             "s2d_conv_db": ("k3", "k3_plain")}
+             "s2d_conv_db": ("k3", "k3_plain"),
+             "s2d_conv_dt": ("k4_f32", "k4_f32_plain"),
+             "fused_channelize": ("k5", "k5_plain")}
     print(card)
     print(json.dumps({"kernels": [{
         "name": name,

@@ -98,25 +98,78 @@ def test_refuses_what_is_not_ported(planted, argv, msg):
 
 
 def test_conv_choices_come_from_the_variant_table(planted, capsys):
-    """The frontends' table holds every ported conv; the CLI offers the
-    reference CLI's --conv choices among them.  pallas_db and
-    pallas_of<N> are reached through the frontends, as in the reference."""
+    """The frontends' table holds every ported conv and the staged chains;
+    the CLI offers "auto" and the reference CLI's --conv choices among
+    them.  pallas_db, pallas_of<N> and the staged chains by name are
+    reached through the frontends, as in the reference; "auto" resolves
+    as the reference's does."""
     from tetraear_tpu_torch.models.multicarrier import CONV_VARIANTS
-    assert set(CONV_VARIANTS) == {"s2d", "s2d_of", "pallas", "pallas_bf16",
+    assert set(CONV_VARIANTS) == {"staged", "gather", "fused", "s2d",
+                                  "s2d_of", "pallas", "pallas_bf16",
                                   "pallas_db", "pallas_of<N>",
                                   "pallas_of<N>_bf16"}
-    assert cli.CLI_CONVS == ("s2d", "s2d_of", "pallas", "pallas_bf16")
+    assert cli.CLI_CONVS == ("auto", "s2d", "s2d_of", "pallas",
+                             "pallas_bf16")
     # the reference's choices, as its argparse lists them on a bad one
     with pytest.raises(SystemExit):
         jax_cli.main(["decode", str(planted[0]), "--conv", "?"])
     listed = capsys.readouterr().err.split("choose from")[1].split(")")[0]
     ref_choices = {c.strip(" '") for c in listed.split(",")}
-    assert "s2d_mono" in ref_choices
-    assert set(cli.CLI_CONVS) == ref_choices & set(CONV_VARIANTS)
-    for conv in ("pallas_db", "pallas_of4"):
+    assert "s2d_mono" in ref_choices and "auto" in ref_choices
+    assert set(cli.CLI_CONVS) == ref_choices & (set(CONV_VARIANTS)
+                                                | {"auto"})
+    for conv in ("pallas_db", "pallas_of4", "staged", "gather", "fused"):
         with pytest.raises(SystemExit):
             cli.main(["decode", str(planted[0]), "--carriers", "16",
                       "--conv", conv])
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    assert cli.resolve_conv("auto", cpu, False) == "staged"
+    assert cli.resolve_conv("auto", cpu, True) == "gather"
+    assert cli.resolve_conv("auto", cuda, False) == "s2d"
+    assert cli.resolve_conv("auto", cuda, True) == "s2d"
+    assert cli.resolve_conv("pallas", cpu, True) == "pallas"
+    assert cli.build_parser().parse_args(
+        ["decode", "x.cf32"]).conv == "pallas_bf16"
+
+
+def test_auto_conv_on_cpu_decodes_through_the_staged_chain(tmp_path,
+                                                           capsys):
+    """`decode --carriers 3 --conv auto --device cpu` runs the staged
+    chain (the reference CLI's choice on the CPU) and decodes each
+    planted text on its carrier."""
+    from tetraear_tpu_torch.utils.synth import planted_wideband
+    x, want = planted_wideband((0, 1, 2), num_carriers=3)
+    iq = tmp_path / "three.cf32"
+    save_iq(iq, x)
+    out = tmp_path / "three.jsonl"
+    rc = cli.main(["decode", str(iq), "--carriers", "3", "--conv", "auto",
+                   "--device", "cpu", "-o", str(out)])
+    log = capsys.readouterr().out
+    assert rc == 0
+    assert "conv auto -> staged" in log and "across 3 carriers" in log
+    got = _texts(out)
+    for k, text in want.items():
+        assert text in got.get(k, set()), (k, got)
+
+
+def test_auto_conv_pfb_on_cpu_decodes_through_the_gather_form(tmp_path,
+                                                              capsys):
+    """`decode --pfb --conv auto --device cpu` runs the gather-form
+    filterbank over all 96 channels; each planted text comes back on its
+    fftfreq channel."""
+    from tetraear_tpu_torch.utils.synth import planted_pfb
+    x, want = planted_pfb()
+    iq = tmp_path / "pfb.cf32"
+    save_iq(iq, x)
+    out = tmp_path / "pfb.jsonl"
+    rc = cli.main(["decode", str(iq), "--carriers", "16", "--pfb", "--conv",
+                   "auto", "--device", "cpu", "-o", str(out)])
+    log = capsys.readouterr().out
+    assert rc == 0
+    assert "conv auto -> gather" in log and "across 96 carriers" in log
+    got = _texts(out)
+    for c, text in want.items():
+        assert text in got.get(c, set()), (c, got)
 
 
 def test_cuda_device_without_card_raises(planted):

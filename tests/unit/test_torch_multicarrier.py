@@ -188,8 +188,11 @@ class TestFrontendModule:
             _port(WIDEBAND_OFFSETS, "pallas_db").named_buffers())
 
     def test_unknown_variant_raises(self):
+        """Unknown names, folds K1-of does not take, and the staged chains
+        (frontends of their own: build_frontend) are refused."""
         for bad in ("pallas_hb16", "pallas_of", "pallas_of7", "pallas_ofx",
-                    "pallas_of4_f16", "pallas_of<N>", "fused", "s2d_mono"):
+                    "pallas_of4_f16", "pallas_of<N>", "fused_ri", "s2d_mono",
+                    "staged", "gather"):
             with pytest.raises(ValueError):
                 _port(WIDEBAND_OFFSETS, bad)
 

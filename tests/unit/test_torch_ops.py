@@ -216,8 +216,8 @@ class TestS2dConv:
 
     def test_pallas_s2d_conv_routes_variants(self):
         """On the CPU each variant is its kernel's plain version, bit for
-        bit; dt / dt_bf16 (K4) are refused as not ported, as are folds
-        over 2D * fold = 128 and unknown names."""
+        bit, dt / dt_bf16 (K4) included, and no launch is counted; folds
+        over 2D * fold = 128 and unknown names are refused."""
         kernel, gc, _ = _kernel(4)
         L = kernel.shape[-1]
         k2 = tfused.s2d_kernel(kernel, D)
@@ -225,21 +225,60 @@ class TestS2dConv:
         x = torch.from_numpy(_noise(3_001, 3))
         plain = {"dma": k1.s2d_conv_plain(x, kt, gc, L, D),
                  "bf16": k1.s2d_conv_plain(x, kt, gc, L, D, bf16=True),
-                 "db": k1.s2d_conv_plain(x, kt, gc, L, D)}
+                 "db": k1.s2d_conv_plain(x, kt, gc, L, D),
+                 "dt": k1.s2d_conv_plain(x, kt, gc, L, D),
+                 "dt_bf16": k1.s2d_conv_plain(x, kt, gc, L, D, bf16=True)}
         for fold in (1, 4, 6):
             kof = torch.from_numpy(tfused.fold_s2d_kernel(k2, fold))
             for bf16 in (False, True):
                 plain[f"of{fold}" + "_bf16" * bf16] = k1.s2d_conv_of_plain(
                     x, kof, gc, L, D, fold, bf16=bf16)
+        before = dict(k1.LAUNCHES)
         for variant, want in plain.items():
             got = k1.pallas_s2d_conv(x, k2, gc, L, D, variant=variant)
             assert torch.equal(got, want), variant
-        for variant in ("dt", "dt_bf16"):
-            with pytest.raises(ValueError, match="K4"):
-                k1.pallas_s2d_conv(x, k2, gc, L, D, variant=variant)
-        for variant in ("of7", "of0", "of4_f16", "ofx", "bf16h", "dma2"):
+        assert k1.LAUNCHES == before
+        for variant in ("of7", "of0", "of4_f16", "ofx", "bf16h", "dma2",
+                        "dt_f16"):
             with pytest.raises(ValueError):
                 k1.pallas_s2d_conv(x, k2, gc, L, D, variant=variant)
+
+    @pytest.mark.parametrize("variant,bound", [("dt", 4e-6),
+                                               ("dt_bf16", 4e-3)])
+    def test_dt_matches_jax_dt(self, variant, bound):
+        """The port's pallas_s2d_conv(variant="dt" | "dt_bf16") (K4's
+        plain version on the CPU) vs the JAX one in interpret mode and the
+        XLA s2d conv, with the reference's bounds
+        (test_pallas_kernels.py:99-117): f32 sum order for dt, bf16
+        operand rounding for dt_bf16, x max of the f32 conv."""
+        kernel, gc, _ = _kernel(16)
+        k2 = np.array(jfused.s2d_kernel(kernel, D))
+        L = kernel.shape[-1]
+        x = _noise(40_000, 0xD7)
+        f32 = np.asarray(jfused._s2d_conv(jnp.asarray(x), k2, gc, L, D))
+        want = np.asarray(pallas_s2d_conv(jnp.asarray(x), k2, gc, L, D,
+                                          variant=variant))
+        got = k1.pallas_s2d_conv(torch.from_numpy(x), k2, gc, L, D,
+                                 variant=variant).numpy()
+        assert got.shape == want.shape == f32.shape == (32, 4_000)
+        scale = np.abs(f32).max()
+        assert np.abs(got - f32).max() < bound * scale
+        assert np.abs(got - want).max() < bound * scale
+
+    def test_dt_refuses_a_window_over_shared_memory(self):
+        """K4 keeps a tile's 2D x (256 + Lp - 1) window in shared memory:
+        an input-channel count whose window does not fit is refused with
+        a ValueError on every device (the reference fails there with an
+        opaque pad error), and the bench's 20 channels fit."""
+        k1.check_dt(20, 77)
+        k1.check_dt(192, 40)
+        decim = 120
+        k2 = torch.zeros((2, 2 * decim, 3))
+        x = torch.zeros(10_000, dtype=torch.complex64)
+        with pytest.raises(ValueError, match="shared memory"):
+            k1.s2d_conv_dt(x, k2, 0, 3 * decim, decim)
+        with pytest.raises(ValueError, match="shared memory"):
+            k1.pallas_s2d_conv(x, k2, 0, 3 * decim, decim, variant="dt_bf16")
 
     def test_wrapper_refuses_other_devices(self):
         kernel, gc, _ = _kernel(4)
@@ -289,6 +328,30 @@ class TestS2dConv:
         assert k1.LAUNCHES["s2d_conv_db"] == before["s2d_conv_db"] + 1
         assert torch.equal(got, k1.s2d_conv(x, k2, gc, L, D))
         want = k1.s2d_conv_plain(x, k2, gc, L, D)
+        assert ((got - want).abs().max()
+                <= 4e-6 * want.abs().max()).item()
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("bf16", [False, True])
+    @pytest.mark.parametrize("num_carriers,n", [(16, 100_003),
+                                                (3, 40_007),
+                                                ("pfb", 40_007)])
+    def test_k4_matches_plain_on_card(self, cuda_device, num_carriers, n,
+                                      bf16):
+        """K4 vs the plain version on the card, TF32 off: f32 sum-order
+        tolerance (bf16 operands rounded identically); 3 carriers (C2 = 6)
+        run on zero-padded weight rows, the filterbank on 6 row groups."""
+        kernel, gc, _ = _kernel(num_carriers)
+        L = kernel.shape[-1]
+        k2 = torch.as_tensor(tfused.s2d_kernel(kernel, D), device=cuda_device)
+        x = torch.as_tensor(_noise(n, 10), device=cuda_device)
+        before = k1.LAUNCHES["s2d_conv_dt"]
+        got = k1.pallas_s2d_conv(x, k2, gc, L, D,
+                                 variant="dt_bf16" if bf16 else "dt")
+        torch.cuda.synchronize()
+        assert k1.LAUNCHES["s2d_conv_dt"] == before + 1
+        want = k1.s2d_conv_plain(x, k2, gc, L, D, bf16=bf16)
+        assert got.shape == want.shape
         assert ((got - want).abs().max()
                 <= 4e-6 * want.abs().max()).item()
 

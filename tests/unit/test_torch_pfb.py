@@ -141,10 +141,12 @@ class TestPfbFrontendModule:
             0, 768, 10, (192, 20, 77))
 
     def test_unknown_variant_raises(self):
-        """The 16-carrier folds, the TPU-scheduling variants and unknown
-        names are refused, as the reference refuses unknown PFB names."""
+        """The 16-carrier folds, the TPU-scheduling variants, unknown
+        names and the staged chains (frontends of their own) are refused,
+        as the reference refuses unknown PFB names."""
         for bad in ("s2d_of", "pallas_of4", "pallas_of4_bf16", "pallas_hb16",
-                    "pallas_mono", "s2d_mono", "s2d_hb16", "fused"):
+                    "pallas_mono", "s2d_mono", "s2d_hb16", "gather",
+                    "staged"):
             with pytest.raises(ValueError, match="PFB"):
                 _port(bad)
 

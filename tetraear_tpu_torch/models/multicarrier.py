@@ -6,14 +6,21 @@ with soft-CRC verdicts, with only MAC/SDS parsing left to the host.
 Stages of `MulticarrierFrontend.forward`:
   1. the composite s2d conv (mixer + decimating FIR + channel FIR), by
      the conv named in CONV_VARIANTS: a plain F.conv1d version or a
-     hand-written kernel (K1, K1-of, K3);
-  2. the real-pair demod tail (models.realpair._demod_from_pair);
-  3. the candidates stage (extract_candidates): top-K sync positions,
-     510-bit frame windows, batched soft CRC.
+     hand-written kernel (K1, K1-of, K3), or the legacy strided dense
+     conv ("fused");
+  2. the real-pair demod tail (models.realpair._demod_from_pair), or for
+     the 16-carrier "fused" conv the complex demod front (_demod_front);
+  3. the candidates stage (models.candidates.extract_candidates): top-K
+     sync positions, 510-bit frame windows, batched soft CRC.
 `PfbMulticarrierFrontend` runs the same stages over all 96 channels of
 the 25 kHz grid at 2.4 MS/s, its conv the polyphase filterbank as one
-dense conv (`ops.fused.pfb_kernel`, 192 rows).  `MulticarrierDecoder` is
-the host decode over either result.
+dense conv (`ops.fused.pfb_kernel`, 192 rows).
+The staged chains, the reference's `fused=False`, are frontends of their
+own: `StagedMulticarrierFrontend` (channelize — K5 on the card — then
+the channel FIR and `_demod_front`) and `GatherPfbFrontend` (the
+gather-form filterbank, then `_demod_front`).  `build_frontend` maps a
+conv name to its frontend; `MulticarrierDecoder` is the host decode over
+any of their results.
 """
 
 from __future__ import annotations
@@ -23,117 +30,106 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
-from torch import nn
 
-from tetraear_tpu import constants as C
 from tetraear_tpu.config import ReceiverConfig
-from tetraear_tpu_torch.ops import fused, pfb
-from tetraear_tpu_torch.ops.crc import crc_tables, soft_crc_check_batch
+from tetraear_tpu_torch.models.candidates import (  # noqa: F401
+    CandidateStage, MulticarrierResult, candidate_stage, extract_candidates)
+from tetraear_tpu_torch.models.realpair import (
+    StagedState, _demod_from_pair, staged_state)
+from tetraear_tpu_torch.ops import dqpsk, fused, pfb, sync
+from tetraear_tpu_torch.ops.channelizer import channelize
+from tetraear_tpu_torch.ops.fir import fir_filter_same
 from tetraear_tpu_torch.ops.kernels.s2d_conv import (
     check_fold, parse_fold, s2d_conv, s2d_conv_db, s2d_conv_of,
     s2d_conv_of_plain, s2d_conv_plain)
-from tetraear_tpu_torch.models.realpair import _demod_from_pair
+from tetraear_tpu_torch.ops.timing import best_phase_pick
+
 
 class ConvVariant(NamedTuple):
-    runs: str    # what runs the composite conv
+    runs: str    # what runs the channelizer
     cli: bool    # a --conv choice of the reference's CLI
-    pfb: bool    # a variant of the reference's PfbMulticarrierFrontend
+    pfb: bool    # a variant of the full-band (PFB) frontend
+    ddc: bool    # a variant of the 16-carrier (DDC-bank) frontend
 
 
-# conv name -> ConvVariant; the names keep the reference's.  <N> is a
-# fold (2D * N <= 128).  The frontends and the CLI read this table.
+# conv name -> ConvVariant; the names keep the reference's, and its
+# `fused=` argument maps to them: False -> "staged" (DDC bank) or
+# "gather" (PFB), True -> "fused", a string -> the same name.  <N> is a
+# fold (2D * N <= 128).  build_frontend and the CLI read this table.
 CONV_VARIANTS = {
-    "s2d": ConvVariant("plain F.conv1d, f32", cli=True, pfb=True),
+    "staged": ConvVariant("the staged chain (fused=False): channelize, "
+                          "K5 (csrc/fused_channelize.cu) on CUDA and the "
+                          "mixer + strided F.conv1d on the CPU, then the "
+                          "channel FIR", cli=False, pfb=False, ddc=True),
+    "gather": ConvVariant("the gather-form polyphase filterbank "
+                          "(fused=False): window gathers, fold, IFFT",
+                          cli=False, pfb=True, ddc=False),
+    "fused": ConvVariant("the legacy dense conv (fused=True): stride-D "
+                         "F.conv1d of the (2C, 2, L) kernel, f32",
+                         cli=False, pfb=True, ddc=True),
+    "s2d": ConvVariant("plain F.conv1d, f32", cli=True, pfb=True, ddc=True),
     "s2d_of": ConvVariant("plain F.conv1d with fold = max(1, min(8, "
                           "128 // C2)) output positions folded into rows, "
-                          "f32", cli=True, pfb=False),
+                          "f32", cli=True, pfb=False, ddc=True),
     "pallas": ConvVariant("K1 (csrc/s2d_conv.cu), f32 operands",
-                          cli=True, pfb=True),
+                          cli=True, pfb=True, ddc=True),
     "pallas_bf16": ConvVariant("K1 (csrc/s2d_conv.cu), bf16 operands, f32 "
-                               "accumulation", cli=True, pfb=True),
+                               "accumulation", cli=True, pfb=True, ddc=True),
     "pallas_db": ConvVariant("K3 (csrc/s2d_conv_db.cu): K1 with the next "
                              "tile's input prefetched by cp.async, f32",
-                             cli=False, pfb=True),
+                             cli=False, pfb=True, ddc=True),
     "pallas_of<N>": ConvVariant("K1-of (csrc/s2d_conv.cu, fold N), f32 "
-                                "operands", cli=False, pfb=False),
+                                "operands", cli=False, pfb=False, ddc=True),
     "pallas_of<N>_bf16": ConvVariant("K1-of (csrc/s2d_conv.cu, fold N), "
                                      "bf16 operands, f32 accumulation",
-                                     cli=False, pfb=False),
+                                     cli=False, pfb=False, ddc=True),
 }
 PFB_CONV_VARIANTS = tuple(k for k, v in CONV_VARIANTS.items() if v.pfb)
-
-_SEG = 128   # segment of the hierarchical top-K
-
-
-class MulticarrierResult(NamedTuple):
-    bits: torch.Tensor        # (C, B) uint8 demodulated bit streams
-    sync_corr: torch.Tensor   # (C, B-21) float32 best-of-TS1/TS2
-    count: torch.Tensor       # (C,) int32 valid symbol count per carrier
-    cand_pos: torch.Tensor    # (C, K) int32 candidate sync bit positions
-    cand_corr: torch.Tensor   # (C, K) float32 candidate correlations
-    cand_valid: torch.Tensor  # (C, K) bool — corr >= threshold & in-bounds
-    frame_bits: torch.Tensor  # (C, K, 510) uint8 candidate frame windows
-    crc_ok: torch.Tensor      # (C, K) bool — soft-CRC verdict
+_STAGED = ("staged", "gather")   # frontends of their own
 
 
-def _top_k(x: torch.Tensor, k: int) -> tuple:
-    """Largest k along the last axis, ties to the lower index (as
-    lax.top_k): a stable descending sort, then the first k."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
+def _demod_front(y: torch.Tensor, sps: int,
+                 z_rot: tuple | None = None) -> tuple:
+    """Complex channel-rate (C, M) -> (bits, sync scores, count): best-
+    phase timing, the differential demod, TS1/TS2 scores.
 
-
-def extract_candidates(bits: torch.Tensor, corr: torch.Tensor,
-                       valid_bits: torch.Tensor, k: int, threshold: float,
-                       crc_a: torch.Tensor, crc_c0: torch.Tensor) -> tuple:
-    """Top-K sync candidates + 510-bit frame windows + batched soft CRC.
-
-    bits (C, B), corr (C, B-21), valid_bits (C,) valid bits per row;
-    (crc_a, crc_c0) = ops.crc.crc_tables(200, device).  Returns (pos,
-    corr, valid, frames, crc_ok)."""
-    b = bits.shape[-1]
-    ncorr = corr.shape[-1]
-    pos_idx = torch.arange(ncorr, device=corr.device)
-    # a window starting at p covers bits [p-216, p-216+510)
-    in_bounds = ((pos_idx >= C.SYNC_TO_FRAME_START_BITS)
-                 & (pos_idx[None, :] - C.SYNC_TO_FRAME_START_BITS
-                    + C.BITS_PER_SLOT <= valid_bits[:, None]))
-    masked = torch.where(in_bounds, corr, -1.0)
-    n_seg = -(-ncorr // _SEG)
-    if n_seg < 4 * k:
-        top_corr, top_pos = _top_k(masked, k)
+    z_rot: per-carrier (cos, sin) of the deferred residual rotation,
+    applied to z; the sector quantizer then decides, and z = 0 (the
+    zero padding past `count`) goes to bin 0, as atan2(0, 0) = 0 puts it
+    without z_rot."""
+    ts = best_phase_pick(y, sps)
+    if z_rot is None:
+        hard = dqpsk.demodulate_hard(ts.symbols, profile="ref")
     else:
-        # hierarchical top-K: segment maxima (first index on ties), top-K
-        # over the segments, then the in-segment argmax.  True syncs are
-        # >= 510 bits apart, so a segment holds at most one.
-        padded = F.pad(masked, (0, n_seg * _SEG - ncorr), value=-1.0)
-        seg_max, seg_arg = padded.reshape(-1, n_seg, _SEG).max(dim=-1)
-        top_corr, top_seg = _top_k(seg_max, k)
-        top_pos = top_seg * _SEG + torch.gather(seg_arg, -1, top_seg)
-    start = (top_pos - C.SYNC_TO_FRAME_START_BITS).clamp_min(0)
-    # clamped gather bits[c, min(start + j, b - 1)]
-    win = (start[..., None]
-           + torch.arange(C.BITS_PER_SLOT, device=bits.device)).clamp_max(b - 1)
-    frames = torch.gather(bits, -1, win.reshape(win.shape[0], -1)
-                          ).reshape(win.shape)
-    valid = top_corr >= threshold
-    data_bits = torch.cat(
-        [frames[..., C.BURST_BLOCK1[0]:C.BURST_BLOCK1[1]],
-         frames[..., C.BURST_BLOCK2[0]:C.BURST_BLOCK2[1]]], dim=-1)
-    crc_ok = soft_crc_check_batch(data_bits, crc_a, crc_c0)
-    return top_pos.to(torch.int32), top_corr, valid, frames, crc_ok
+        s = ts.symbols
+        z = s[..., 1:] * s[..., :-1].conj()
+        z = z * torch.complex(z_rot[0], -z_rot[1])[..., None]
+        zr, zi = z.real, z.imag
+        hard = dqpsk.quantize_z_ref(zr, zi)
+        hard = torch.where((zr == 0) & (zi == 0), 0, hard).to(torch.uint8)
+    bits = dqpsk.symbols_to_bits(hard)
+    corr = sync.best_correlation(bits)
+    return bits, corr, ts.count
+
+
+def _demod_tail(y: torch.Tensor, sps: int, k: int, threshold: float,
+                crc: tuple) -> MulticarrierResult:
+    """_demod_front then the candidates stage; crc = (crc_a, crc_c0)."""
+    return candidate_stage(*_demod_front(y, sps), k, threshold, *crc)
 
 
 def conv_fold(conv: str, c2: int, decim: int) -> tuple:
     """conv name -> (fold, bf16): fold 0 for the un-folded convs.  An
-    unknown name or a fold K1-of does not take raises."""
+    unknown name, a staged chain or a fold K1-of does not take raises."""
     if conv.startswith("pallas_of"):
         fold, bf16 = parse_fold(conv, "pallas_of")
         check_fold(fold, decim)
         return fold, bf16
     if conv == "s2d_of":
         return max(1, min(8, 128 // c2)), False
+    if conv in _STAGED:
+        raise ValueError(f"conv {conv!r} is a frontend of its own: "
+                         "build_frontend makes it")
     if conv not in CONV_VARIANTS or "<" in conv:
         raise ValueError(f"unknown conv variant {conv!r}; valid: "
                          + ", ".join(CONV_VARIANTS))
@@ -144,15 +140,17 @@ def conv_fold(conv: str, c2: int, decim: int) -> tuple:
 class FrontendState:
     """What the frontend convolves and rotates with: the (C2, 2D, Lp) s2d
     kernel, its composite length L and group delay gc, the decimation D,
-    and the per-carrier (cos, sin) of the deferred z rotation.  The
-    folded convs fold this kernel (ops.fused.fold_s2d_kernel), so every
-    conv of both packages convolves with the identical kernel."""
+    the per-carrier (cos, sin) of the deferred z rotation, and the
+    (2C, 2, L) kernel it came from (the "fused" conv's).  The folded convs
+    fold the s2d kernel (ops.fused.fold_s2d_kernel), so every conv of
+    both packages convolves with the identical kernel."""
     kernel_s2d: np.ndarray
     gc: int
     L: int
     decim: int
     z_cos: np.ndarray
     z_sin: np.ndarray
+    kernel: np.ndarray | None = None
 
 
 def state_from_reference(kernel, gc: int, rot_cycles, decim: int,
@@ -160,29 +158,28 @@ def state_from_reference(kernel, gc: int, rot_cycles, decim: int,
     """FrontendState from the (kernel, gc, rot_cycles) triple that
     `tetraear_tpu.ops.fused.fused_kernel` (or this package's copy)
     returns, so that both packages convolve with the identical kernel."""
-    kernel = np.asarray(kernel, np.float32)
+    kernel = np.array(kernel, np.float32)              # a writable copy
     z_cos, z_sin = fused.symbol_rotation(np.asarray(rot_cycles), decim, sps)
     return FrontendState(fused.s2d_kernel(kernel, decim), int(gc),
-                         kernel.shape[-1], decim, z_cos, z_sin)
+                         kernel.shape[-1], decim, z_cos, z_sin, kernel)
 
 
-class MulticarrierFrontend(nn.Module):
+class MulticarrierFrontend(CandidateStage):
     """Device pipeline for one carrier-offset set: composite conv ->
-    demod tail -> candidates.  Buffers: the s2d kernel (and its folded
-    form for the folded convs), the z rotation (cos, sin) and the CRC
-    matrix.  `conv` names a CONV_VARIANTS entry."""
+    demod tail -> candidates.  Buffers: the s2d kernel (its folded form
+    for the folded convs, the (2C, 2, L) kernel for "fused"), the z
+    rotation (cos, sin) and the CRC matrix.  `conv` names a CONV_VARIANTS
+    entry."""
 
     def __init__(self, state: FrontendState, *, sps: int, device,
                  num_candidates: int = 64, threshold: float = 0.80,
                  conv: str = "pallas_bf16"):
-        super().__init__()
+        super().__init__(sps=sps, device=device,
+                         num_candidates=num_candidates, threshold=threshold)
         self.fold, self.bf16 = conv_fold(conv, state.kernel_s2d.shape[0],
                                          state.decim)
         self.conv = conv
         self.gc, self.L, self.decim = state.gc, state.L, state.decim
-        self.sps = sps
-        self.num_candidates = num_candidates
-        self.threshold = threshold
         device = torch.device(device)
         self.register_buffer("kernel_s2d", torch.as_tensor(
             state.kernel_s2d, dtype=torch.float32, device=device))
@@ -190,15 +187,13 @@ class MulticarrierFrontend(nn.Module):
             self.register_buffer("kernel_of", torch.as_tensor(
                 fused.fold_s2d_kernel(state.kernel_s2d, self.fold),
                 device=device))
+        if conv == "fused":
+            self.register_buffer("kernel", torch.as_tensor(
+                state.kernel, dtype=torch.float32, device=device))
         self.register_buffer("z_cos", torch.as_tensor(state.z_cos,
                                                       device=device))
         self.register_buffer("z_sin", torch.as_tensor(state.z_sin,
                                                       device=device))
-        crc_a, crc_c0 = crc_tables(
-            (C.BURST_BLOCK1[1] - C.BURST_BLOCK1[0])
-            + (C.BURST_BLOCK2[1] - C.BURST_BLOCK2[0]) - 16, device)
-        self.register_buffer("crc_a", crc_a)
-        self.register_buffer("crc_c0", crc_c0)
 
     @classmethod
     def from_offsets(cls, offsets_hz, config: ReceiverConfig | None = None,
@@ -225,12 +220,11 @@ class MulticarrierFrontend(nn.Module):
                                      cfg.decimation_factor, sps)
         return cls(state, sps=sps, **kwargs)
 
-    @property
-    def device(self) -> torch.device:
-        return self.kernel_s2d.device
-
     def channelize(self, x: torch.Tensor) -> tuple:
         """(N,) complex64 on the module's device -> un-derotated (yr, yi)."""
+        if self.conv == "fused":
+            return fused.fused_channelize_ri(x, self.kernel, self.gc, None,
+                                             self.decim, rotate=False)
         args = (self.gc, self.L, self.decim)
         if self.conv == "s2d":
             out = s2d_conv_plain(x, self.kernel_s2d, *args)
@@ -246,6 +240,16 @@ class MulticarrierFrontend(nn.Module):
         c = out.shape[0] // 2
         return out[:c], out[c:]
 
+    def demod(self, yr: torch.Tensor, yi: torch.Tensor) -> tuple:
+        """(bits, sync scores, count) of the un-derotated pair: the real-
+        pair tail, or for the 16-carrier "fused" conv the reference's
+        complex demod front."""
+        z_rot = (self.z_cos, self.z_sin)
+        if self.conv == "fused":
+            return _demod_front(torch.complex(yr, yi), self.sps, z_rot)
+        res = _demod_from_pair(yr, yi, self.sps, z_rot=z_rot)
+        return res.bits, res.sync_corr, res.count
+
     def forward(self, x, start_index: int = 0) -> MulticarrierResult:
         """x: (N,) complex IQ (numpy or tensor), moved to the module's
         device.  `start_index` (the block's first sample index) is taken
@@ -253,29 +257,24 @@ class MulticarrierFrontend(nn.Module):
         z as a per-carrier constant, so the result does not depend on it."""
         x = torch.as_tensor(x, device=self.device).to(torch.complex64)
         yr, yi = self.channelize(x.contiguous())
-        res = _demod_from_pair(yr, yi, self.sps,
-                               z_rot=(self.z_cos, self.z_sin))
-        valid_bits = (res.count - 1).clamp_min(0) * 2
-        pos, ccorr, valid, frames, crc_ok = extract_candidates(
-            res.bits, res.sync_corr, valid_bits, self.num_candidates,
-            self.threshold, self.crc_a, self.crc_c0)
-        return MulticarrierResult(res.bits, res.sync_corr, res.count, pos,
-                                  ccorr, valid, frames, crc_ok)
+        return self.candidates(*self.demod(yr, yi))
 
 
 class PfbMulticarrierFrontend(MulticarrierFrontend):
     """Full-band filterbank frontend (port of the reference's
-    `PfbMulticarrierFrontend` for its s2d, pallas, pallas_bf16 and
-    pallas_db variants): the polyphase DFT filterbank of all fs / 25 kHz
-    channels (96 at 2.4 MS/s) as one dense conv of 2 x 96 rows, then the
-    demod tail and candidates over every channel.  Row c is the channel
-    at `channel_offsets_hz()[c]` (fftfreq order)."""
+    `PfbMulticarrierFrontend` for its fused=True, s2d, pallas,
+    pallas_bf16 and pallas_db variants): the polyphase DFT filterbank of
+    all fs / 25 kHz channels (96 at 2.4 MS/s) as one dense conv of 2 x 96
+    rows, then the real-pair demod tail and candidates over every
+    channel.  Row c is the channel at `channel_offsets_hz()[c]` (fftfreq
+    order).  The gather form (fused=False) is `GatherPfbFrontend`."""
 
     def __init__(self, state: FrontendState, *, sample_rate_hz: float,
                  conv: str = "pallas_bf16", **kwargs):
-        if conv not in PFB_CONV_VARIANTS:
+        if conv not in PFB_CONV_VARIANTS or conv in _STAGED:
             raise ValueError(f"unknown PFB conv variant {conv!r}; valid: "
-                             + ", ".join(PFB_CONV_VARIANTS))
+                             + ", ".join(v for v in PFB_CONV_VARIANTS
+                                         if v not in _STAGED))
         super().__init__(state, conv=conv, **kwargs)
         self.sample_rate_hz = sample_rate_hz
         self.num_channels = state.kernel_s2d.shape[0] // 2
@@ -302,9 +301,113 @@ class PfbMulticarrierFrontend(MulticarrierFrontend):
                                        sample_rate_hz=cfg.sample_rate_hz,
                                        **kwargs)
 
+    def demod(self, yr: torch.Tensor, yi: torch.Tensor) -> tuple:
+        res = _demod_from_pair(yr, yi, self.sps,
+                               z_rot=(self.z_cos, self.z_sin))
+        return res.bits, res.sync_corr, res.count
+
     def channel_offsets_hz(self) -> np.ndarray:
         """Center frequency of each channel row (fftfreq order)."""
         return pfb.channel_offsets_hz(self.num_channels, self.sample_rate_hz)
+
+
+class StagedMulticarrierFrontend(CandidateStage):
+    """The staged DDC bank, the reference's `MulticarrierFrontend(fused=
+    False)`: `channelize` (K5 on a CUDA device, the plain mixer + strided
+    FIR on the CPU), the channel FIR (`fir_filter_same`), the complex
+    demod front, the candidates.  The mixer's phase runs on the global
+    sample index, so the result depends on `start_index`."""
+
+    def __init__(self, state: StagedState, *, sps: int, device,
+                 num_candidates: int = 64, threshold: float = 0.80):
+        super().__init__(sps=sps, device=device,
+                         num_candidates=num_candidates, threshold=threshold)
+        self.sample_rate_hz = state.sample_rate_hz
+        self.decim = state.decim
+        device = torch.device(device)
+        for name in ("offsets_hz", "taps_d", "taps_c"):
+            self.register_buffer(name, torch.as_tensor(
+                getattr(state, name), dtype=torch.float32, device=device))
+
+    @classmethod
+    def from_offsets(cls, offsets_hz, config: ReceiverConfig | None = None,
+                     **kwargs) -> "StagedMulticarrierFrontend":
+        """Build with this package's FIR designers."""
+        cfg = config or ReceiverConfig()
+        return cls(staged_state(offsets_hz, cfg),
+                   sps=cfg.ref_samples_per_symbol, **kwargs)
+
+    def channelize(self, x: torch.Tensor, start_index: int = 0
+                   ) -> torch.Tensor:
+        """(N,) complex64 -> (C, ceil(N/D)) complex64 channels."""
+        y = channelize(x, self.offsets_hz, self.sample_rate_hz, self.decim,
+                       self.taps_d, start_index)
+        return fir_filter_same(y, self.taps_c)
+
+    def forward(self, x, start_index: int = 0) -> MulticarrierResult:
+        x = torch.as_tensor(x, device=self.device).to(torch.complex64)
+        y = self.channelize(x.contiguous(), start_index)
+        return _demod_tail(y, self.sps, self.num_candidates, self.threshold,
+                           (self.crc_a, self.crc_c0))
+
+
+class GatherPfbFrontend(CandidateStage):
+    """The gather-form full band, the reference's
+    `PfbMulticarrierFrontend(fused=False)`: `pfb.pfb_channelize` over all
+    fs / 25 kHz channels (96 at 2.4 MS/s), the complex demod front, the
+    candidates.  Row c is the channel at `channel_offsets_hz()[c]`."""
+
+    def __init__(self, config: ReceiverConfig | None = None, *, device,
+                 num_candidates: int = 64, threshold: float = 0.80,
+                 taps_per_branch: int = 8):
+        cfg = config or ReceiverConfig()
+        super().__init__(sps=cfg.ref_samples_per_symbol, device=device,
+                         num_candidates=num_candidates, threshold=threshold)
+        self.sample_rate_hz = cfg.sample_rate_hz
+        self.num_channels = int(round(cfg.sample_rate_hz / 25e3))
+        self.decim = cfg.decimation_factor
+        self.register_buffer("taps", torch.as_tensor(
+            pfb.design_prototype(self.num_channels, taps_per_branch),
+            dtype=torch.float32, device=torch.device(device)))
+
+    def channel_offsets_hz(self) -> np.ndarray:
+        return pfb.channel_offsets_hz(self.num_channels, self.sample_rate_hz)
+
+    def forward(self, x, start_index: int = 0) -> MulticarrierResult:
+        """x: (N,) complex IQ; `start_index` is taken for the CLI's call
+        and not used, as in the reference."""
+        x = torch.as_tensor(x, device=self.device).to(torch.complex64)
+        y = pfb.pfb_channelize(x, self.num_channels, self.decim, self.taps)
+        return _demod_tail(y, self.sps, self.num_candidates, self.threshold,
+                           (self.crc_a, self.crc_c0))
+
+
+def build_frontend(conv: str, *, device, pfb: bool = False,
+                   offsets_hz=None, config: ReceiverConfig | None = None,
+                   **kwargs) -> CandidateStage:
+    """The frontend that runs `conv` (a CONV_VARIANTS name) on `device`:
+    the full band with pfb=True, else the DDC bank on `offsets_hz`."""
+    if conv.startswith("pallas_of"):
+        variant = CONV_VARIANTS["pallas_of<N>"]
+    elif conv in CONV_VARIANTS:
+        variant = CONV_VARIANTS[conv]
+    else:
+        raise ValueError(f"unknown conv variant {conv!r}; valid: "
+                         + ", ".join(CONV_VARIANTS))
+    if not (variant.pfb if pfb else variant.ddc):
+        raise ValueError(f"conv {conv!r} is not a variant of the "
+                         f"{'full-band' if pfb else '16-carrier'} frontend")
+    if conv == "gather":
+        return GatherPfbFrontend(config, device=device, **kwargs)
+    if pfb:
+        return PfbMulticarrierFrontend.from_config(config, device=device,
+                                                   conv=conv, **kwargs)
+    if conv == "staged":
+        return StagedMulticarrierFrontend.from_offsets(
+            offsets_hz, config, device=device, **kwargs)
+    return MulticarrierFrontend.from_offsets(offsets_hz, config,
+                                             device=device, conv=conv,
+                                             **kwargs)
 
 
 class MulticarrierDecoder:

@@ -1,7 +1,15 @@
-"""pi/4-DQPSK sector quantizer and dibit unpacking (port of
-`tetraear_tpu.ops.dqpsk.quantize_z_ref` and `symbols_to_bits`)."""
+"""pi/4-DQPSK differential demodulation (port of `tetraear_tpu.ops.dqpsk`):
+the reference's phase bins on dphi = atan2(z) and the sector quantizer
+on z = x[n] conj(x[n-1]) itself, and dibit unpacking.
+
+The reference bins (`quantize_phase_ref`) keep the reference receiver's
+quirk: they are centred on {0, +-pi/2, pi}, not on the pi/4-DQPSK
+transitions.  Every bin edge is an f32 comparison, as in the reference.
+"""
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -9,6 +17,43 @@ import torch
 # tan(3pi/8) and tan(pi/8), rounded to f32 as the reference's f32 math does
 _T38 = float(np.float32(1.0 + np.sqrt(2.0)))
 _T18 = float(np.float32(np.sqrt(2.0) - 1.0))
+# bin edges -5pi/8, -3pi/8, 3pi/8, 5pi/8 and pi/2, rounded to f32
+_B0, _B1, _B2, _B3 = (float(np.float32(k * math.pi / 8))
+                      for k in (-5, -3, 3, 5))
+_HALF_PI = float(np.float32(math.pi / 2))
+
+
+def differential_phase(symbols: torch.Tensor) -> torch.Tensor:
+    """dphi[n] = angle(x[n+1] conj(x[n])); length N-1 along the last axis."""
+    z = symbols[..., 1:] * symbols[..., :-1].conj()
+    return torch.atan2(z.imag, z.real)
+
+
+def quantize_phase_ref(dphi: torch.Tensor) -> torch.Tensor:
+    """Reference bins: [-5pi/8, -3pi/8) -> 2, [-3pi/8, 3pi/8) -> 0,
+    [3pi/8, 5pi/8) -> 1, otherwise 3.  uint8."""
+    sym = torch.full(dphi.shape, 3, dtype=torch.uint8, device=dphi.device)
+    sym = torch.where((dphi >= _B0) & (dphi < _B1), 2, sym)
+    sym = torch.where((dphi >= _B1) & (dphi < _B2), 0, sym)
+    sym = torch.where((dphi >= _B2) & (dphi < _B3), 1, sym)
+    return sym.to(torch.uint8)
+
+
+def quantize_phase_etsi(dphi: torch.Tensor) -> torch.Tensor:
+    """Maximum-margin quantizer: the sign of dphi gives the MSB, |dphi|
+    against pi/2 the LSB.  uint8."""
+    msb = (dphi < 0).to(torch.uint8)
+    lsb = (dphi.abs() > _HALF_PI).to(torch.uint8)
+    return msb * 2 + lsb
+
+
+def demodulate_hard(symbols: torch.Tensor, profile: str = "ref"
+                    ) -> torch.Tensor:
+    """Complex symbol stream -> uint8 dibits (length N-1)."""
+    dphi = differential_phase(symbols)
+    if profile == "etsi":
+        return quantize_phase_etsi(dphi)
+    return quantize_phase_ref(dphi)
 
 
 def quantize_z_ref(zr: torch.Tensor, zi: torch.Tensor) -> torch.Tensor:

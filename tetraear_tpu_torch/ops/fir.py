@@ -1,9 +1,10 @@
-"""FIR designers (numpy + scipy, host side).
+"""FIR design (numpy + scipy, host side) and application (PyTorch).
 
-Copies of `tetraear_tpu.ops.fir.design_decimation_fir` and
-`design_channel_fir`: that module imports jax at its top, so the port
-keeps its own numpy copy.  tests/unit/test_torch_ops.py holds both
-`array_equal` to the reference.
+The designers are copies of `tetraear_tpu.ops.fir.design_decimation_fir`
+and `design_channel_fir`: that module imports jax at its top, so the
+port keeps its own numpy copy.  tests/unit/test_torch_ops.py holds both
+`array_equal` to the reference.  `fir_decimate` and `fir_filter_same`
+are the reference's strided real convolutions as F.conv1d, in f32.
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 
 @functools.lru_cache(maxsize=None)
@@ -45,3 +48,46 @@ def design_channel_fir(num_taps: int, cutoff_norm: float) -> np.ndarray:
     gain[-1] = 0.0
     taps = sps.firwin2(num_taps, freqs, gain)
     return taps.astype(np.float32)
+
+
+def conv1d_f32(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+               padding: int = 0) -> torch.Tensor:
+    """F.conv1d in full f32: cuDNN runs f32 convolutions in TF32 unless
+    told not to, which keeps only about three decimal digits."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        return F.conv1d(x, w, stride=stride, padding=padding)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def _conv1d_real(x: torch.Tensor, taps, stride: int,
+                 pad: tuple) -> torch.Tensor:
+    """Strided 1-D cross-correlation of real batched signals, zero-padded
+    by pad = (left, right): x (B, N) f32, taps (L,) -> (B, M)."""
+    taps = torch.as_tensor(taps, dtype=torch.float32, device=x.device)
+    lo, hi = pad
+    if lo != hi:
+        x, lo = F.pad(x, (lo, hi)), 0
+    return conv1d_f32(x[:, None, :], taps[None, None, :], stride, lo)[:, 0]
+
+
+def fir_decimate(x: torch.Tensor, taps, decim: int) -> torch.Tensor:
+    """Zero-phase FIR filter + decimate on scipy's output grid: for odd
+    taps of length L = 2G+1, y[m] = sum_k taps[k] x[m*decim + G - k] with
+    zero padding.  x: complex64 (B, N) or (N,) -> complex64 (B,
+    ceil(N/decim)).  Real and imaginary rows go through one conv."""
+    squeeze = x.dim() == 1
+    if squeeze:
+        x = x[None, :]
+    g = (len(taps) - 1) // 2
+    b = x.shape[0]
+    ri = _conv1d_real(torch.cat([x.real, x.imag]), taps, decim, (g, g))
+    y = torch.complex(ri[:b], ri[b:])
+    return y[0] if squeeze else y
+
+
+def fir_filter_same(x: torch.Tensor, taps) -> torch.Tensor:
+    """Zero-phase 'same' FIR filter (stride 1)."""
+    return fir_decimate(x, taps, 1)

@@ -5,6 +5,9 @@ plain C interface, and is compiled by `nvcc` for sm_90a into a shared
 library under `<checkout>/build/kernels/` on first use, then loaded with
 ctypes.  Nothing is built when a module is imported, so the package
 imports (and its CPU tests run) on a machine without nvcc or a card.
+
+Each kernel module keeps a `LAUNCHES` dict, wrapper name -> launches;
+`launches()` and `reset_launches()` read and clear all of them.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import importlib
 import os
 import shutil
 import subprocess
@@ -24,6 +28,26 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+KERNEL_MODULES = ("s2d_conv", "fused_channelize")
+SOURCES = ("s2d_conv", "s2d_conv_db", "s2d_conv_dt", "fused_channelize")
+
+
+def _counters() -> list:
+    return [importlib.import_module(f"{__name__}.{m}").LAUNCHES
+            for m in KERNEL_MODULES]
+
+
+def launches() -> dict:
+    """Every wrapper's launch count, by wrapper name."""
+    return {k: v for counter in _counters() for k, v in counter.items()}
+
+
+def reset_launches() -> None:
+    for counter in _counters():
+        for name in counter:
+            counter[name] = 0
 
 
 class KernelBuildError(RuntimeError):

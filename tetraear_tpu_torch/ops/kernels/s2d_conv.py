@@ -1,5 +1,5 @@
-"""The composite space-to-depth conv — kernels K1, K1-of and K3 — and
-their plain versions.
+"""The composite space-to-depth conv — kernels K1, K1-of, K3 and K4 —
+and their plain versions.
 
     out[c, w] = sum_{i < 2D, a < Lp} K2[c, i, a] * X2[w + a, i]
 
@@ -16,6 +16,10 @@ channel pair in block row order [re.., im..].
   K3     `s2d_conv_db`: replaces `_kernel_db` (`_run_db`, variant "db"):
          K1's contraction with the next tile's input prefetched by
          cp.async; source `csrc/s2d_conv_db.cu`.  f32 only.
+  K4     `s2d_conv_dt`: replaces `_kernel_direct` (entry point
+         `pallas_s2d_conv_dt_wk`, variants "dt" / "dt_bf16"): the
+         direct-tap form, per-tap weights read straight from memory into
+         one running sum per output; source `csrc/s2d_conv_dt.cu`.
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version for CPU tensors; there is no other fallback.  `LAUNCHES` counts
@@ -33,10 +37,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-# launches of K1, K1-of and K3, by wrapper name
-LAUNCHES = {"s2d_conv": 0, "s2d_conv_of": 0, "s2d_conv_db": 0}
+from tetraear_tpu_torch.ops.fir import conv1d_f32
+
+# launches of K1, K1-of, K3 and K4, by wrapper name
+LAUNCHES = {"s2d_conv": 0, "s2d_conv_of": 0, "s2d_conv_db": 0,
+            "s2d_conv_dt": 0}
 
 MAX_FOLD_CHANNELS = 128   # 2D * fold bound of the reference's K1-of
+TILE_W = 256              # output positions of a K1 / K4 tile (s2d_tile.cuh)
+MAX_SMEM_BYTES = 232_448  # dynamic shared memory of one block on Hopper
 
 
 def _conv1d_f32(x2: torch.Tensor, k: torch.Tensor, stride: int,
@@ -46,12 +55,7 @@ def _conv1d_f32(x2: torch.Tensor, k: torch.Tensor, stride: int,
     if bf16:
         x2 = x2.to(torch.bfloat16).float()
         k = k.to(torch.bfloat16).float()
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        return F.conv1d(x2, k, stride=stride)
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
+    return conv1d_f32(x2, k, stride)
 
 
 def _x2_view(x: torch.Tensor, pad_l: int, total: int,
@@ -112,7 +116,7 @@ def _library(name: str) -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
         ctypes.c_longlong,
-        *((ctypes.c_int, ctypes.c_int) if name == "s2d_conv" else ()),
+        *((ctypes.c_int, ctypes.c_int) if name != "s2d_conv_db" else ()),
         ctypes.c_void_p]
     lib.tetra_cuda_error_string.restype = ctypes.c_char_p
     lib.tetra_cuda_error_string.argtypes = [ctypes.c_int]
@@ -228,6 +232,38 @@ def s2d_conv_db(x: torch.Tensor, kernel_s2d: torch.Tensor, gc: int, L: int,
                    L, decim, c2)
 
 
+def check_dt(ich: int, lp: int) -> None:
+    """K4 keeps one tile's window, ich x (256 + Lp - 1) floats, in shared
+    memory: refuse an input-channel count whose window does not fit (the
+    reference fails on the same shapes with an opaque pad error)."""
+    need = 4 * ich * ((TILE_W + lp - 1) | 1)
+    if need > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"K4: the window of {ich} input channels (2D) x {TILE_W + lp - 1}"
+            f" positions is {need} bytes, over the {MAX_SMEM_BYTES} bytes of "
+            "shared memory of one block; use K1 (variant 'dma') here")
+
+
+def s2d_conv_dt(x: torch.Tensor, kernel_s2d: torch.Tensor, gc: int, L: int,
+                decim: int, *, bf16: bool = False) -> torch.Tensor:
+    """K4: K1's contraction in the direct-tap form, one running f32 sum
+    per output over the per-tap weights K2[:, :, a].  x (N,) complex64 +
+    s2d kernel (C2, 2D, Lp) f32 -> (C2, ceil(N/D)) f32; bf16=True: bf16
+    operands, f32 accumulation.  Plain version: `s2d_conv_plain`."""
+    c2, ich, lp = kernel_s2d.shape
+    check_dt(ich, lp)
+    if x.device.type == "cpu" and kernel_s2d.device.type == "cpu":
+        return s2d_conv_plain(x, kernel_s2d, gc, L, decim, bf16=bf16)
+    _check("s2d_conv_dt", x, kernel_s2d, gc, L, decim, lp)
+    wkd = kernel_s2d.permute(2, 0, 1)          # (Lp, C2, 2D), the reference's
+    if bf16:
+        wkd = wkd.to(torch.bfloat16).float()
+    c2p = -(-c2 // 32) * 32                    # whole row groups of 32
+    k_taps = F.pad(wkd.transpose(1, 2), (0, c2p - c2)).contiguous()
+    return _launch("s2d_conv_dt", "s2d_conv_dt", x, k_taps, c2, ich, lp, gc,
+                   L, decim, c2, c2p, int(bf16))
+
+
 def parse_fold(name: str, prefix: str) -> tuple:
     """'<prefix><N>' or '<prefix><N>_bf16' -> (N, bf16); anything else
     raises (tetraear_tpu/models/multicarrier.py:372-377)."""
@@ -244,8 +280,7 @@ def pallas_s2d_conv(x: torch.Tensor, kernel_s2d, gc: int, L: int,
     """Drop-in for the reference's `pallas_s2d_conv`
     (tetraear_tpu/ops/pallas/s2d_conv.py:414): (N,) complex64 ->
     (C2, ceil(N/D)) f32.  Variants: 'dma' / 'bf16' -> K1, 'db' -> K3,
-    'of<N>' / 'of<N>_bf16' -> K1-of with fold N.  'dt' / 'dt_bf16' (K4)
-    are not ported yet."""
+    'dt' / 'dt_bf16' -> K4, 'of<N>' / 'of<N>_bf16' -> K1-of with fold N."""
     if not isinstance(kernel_s2d, torch.Tensor):     # a writable copy
         kernel_s2d = torch.from_numpy(np.array(kernel_s2d, np.float32))
     k2 = kernel_s2d.to(device=x.device, dtype=torch.float32)
@@ -254,9 +289,7 @@ def pallas_s2d_conv(x: torch.Tensor, kernel_s2d, gc: int, L: int,
     if variant == "db":
         return s2d_conv_db(x, k2, gc, L, decim)
     if variant in ("dt", "dt_bf16"):
-        raise ValueError(f"variant {variant!r} runs K4 (the reference's "
-                         "_kernel_direct), which is not ported yet "
-                         "(ROADMAP.md Queue 2)")
+        return s2d_conv_dt(x, k2, gc, L, decim, bf16=variant == "dt_bf16")
     if variant.startswith("of"):
         fold, bf16 = parse_fold(variant, "of")
         from tetraear_tpu_torch.ops.fused import fold_s2d_kernel
@@ -264,4 +297,4 @@ def pallas_s2d_conv(x: torch.Tensor, kernel_s2d, gc: int, L: int,
                                device=x.device)
         return s2d_conv_of(x, k_of, gc, L, decim, fold, bf16=bf16)
     raise ValueError(f"unknown variant {variant!r}; valid: dma, bf16, db, "
-                     "of<N>, of<N>_bf16")
+                     "dt, dt_bf16, of<N>, of<N>_bf16")

@@ -1,7 +1,7 @@
 """Command line of the port: the wideband multicarrier `decode`.
 
     python -m tetraear_tpu_torch decode <iq> --carriers N [--pfb]
-        [--conv s2d|s2d_of|pallas|pallas_bf16] [-o out.jsonl]
+        [--conv auto|s2d|s2d_of|pallas|pallas_bf16] [-o out.jsonl]
         [--chunk-size S] [--device cuda|cpu]
 
 Mirrors `tetraear_tpu decode --carriers N [--pfb]` (tetraear_tpu/ui/cli.py
@@ -12,7 +12,9 @@ zero-padded to full length, the device result of chunk i+1 queued before
 chunk i is decoded on the host, and the same [DONE]/[PERF]/[CARRIERS]
 lines.  The device is explicit: `--device` or, by default, cuda when a
 card is present and cpu otherwise, printed as [DEVICE]; there is no
-fallback from one to the other.
+fallback from one to the other.  `--conv auto` resolves as the
+reference's does: on the CPU the staged chain (with --pfb the
+gather-form filterbank), on a card s2d.
 """
 
 from __future__ import annotations
@@ -25,13 +27,24 @@ import torch
 
 from tetraear_tpu_torch.models.multicarrier import CONV_VARIANTS
 
-# the reference CLI's --conv choices that are ported ("auto", "s2d_mono"
-# and "s2d_hb16" are not); pallas_db and pallas_of<N> are reached through
-# the frontends' constructors, as in the reference
-CLI_CONVS = tuple(k for k, v in CONV_VARIANTS.items() if v.cli)
+# the reference CLI's --conv choices that are ported ("s2d_mono" and
+# "s2d_hb16" are not): "auto" and the table's CLI variants; pallas_db,
+# pallas_of<N> and the staged chains by name are reached through the
+# frontends' constructors, as in the reference
+CLI_CONVS = ("auto",) + tuple(k for k, v in CONV_VARIANTS.items() if v.cli)
 
-_LATER = {"afc": "--afc (grid-comb AFC) is not ported yet "
-                 "(ROADMAP.md Queue 1, Slice 4)"}
+_LATER = {"afc": "--afc (grid-comb AFC) is not ported yet: it needs "
+                 "ops/spectrum.py (ROADMAP.md Queue 1, Slice 6)"}
+
+
+def resolve_conv(conv: str, device: torch.device, pfb: bool) -> str:
+    """`auto` -> the staged chain on the CPU ("gather" with --pfb), s2d on
+    a card (tetraear_tpu/ui/cli.py:699, 709); any other name as given."""
+    if conv != "auto":
+        return conv
+    if device.type == "cpu":
+        return "gather" if pfb else "staged"
+    return "s2d"
 
 
 def _device(name: str | None) -> torch.device:
@@ -48,7 +61,7 @@ def cmd_decode(args) -> int:
     from tetraear_tpu.io.recorder import JsonlFrameRecorder
     from tetraear_tpu.io.replay import FileReplaySource
     from tetraear_tpu_torch.models.multicarrier import (
-        MulticarrierDecoder, MulticarrierFrontend, PfbMulticarrierFrontend)
+        MulticarrierDecoder, build_frontend)
     from tetraear_tpu_torch.ops.channelizer import carrier_grid
 
     for flag, msg in _LATER.items():
@@ -58,28 +71,28 @@ def cmd_decode(args) -> int:
         raise SystemExit("--carriers N (N > 0) is required: the "
                          "single-carrier decode is not ported yet "
                          "(ROADMAP.md Queue 1, Slice 2)")
-    if args.pfb and not CONV_VARIANTS[args.conv].pfb:
-        raise SystemExit(f"--conv {args.conv} is a 16-carrier variant; the "
-                         "PFB supports s2d, pallas, pallas_bf16")
     dev = _device(args.device)
+    conv = resolve_conv(args.conv, dev, args.pfb)
+    if args.pfb and not CONV_VARIANTS[conv].pfb:
+        raise SystemExit(f"--conv {conv} is a 16-carrier variant; the "
+                         "PFB supports auto, s2d, pallas, pallas_bf16")
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "host"
-    conv = CONV_VARIANTS[args.conv].runs
-    if dev.type == "cpu" and args.conv.startswith("pallas"):
-        conv += "; the kernel's plain version on the CPU"
-    print(f"[DEVICE] {dev} ({name}), conv {args.conv}: {conv}")
+    runs = CONV_VARIANTS[conv].runs
+    if dev.type == "cpu" and conv.startswith("pallas"):
+        runs += "; the kernel's plain version on the CPU"
+    print(f"[DEVICE] {dev} ({name}), conv {args.conv}"
+          + (f" -> {conv}" if conv != args.conv else "") + f": {runs}")
 
     source = FileReplaySource(args.iq_file,
                               sample_rate=args.sample_rate * 1e6)
     if not source.open():
         print(f"[FAIL] Could not open {args.iq_file}")
         return 1
+    # with --pfb the full-band polyphase filterbank: every 25 kHz channel
+    mc = build_frontend(conv, device=dev, pfb=args.pfb,
+                        offsets_hz=carrier_grid(args.carriers))
     if args.pfb:
-        # full-band polyphase filterbank: every 25 kHz channel at once
-        mc = PfbMulticarrierFrontend.from_config(device=dev, conv=args.conv)
         args.carriers = mc.num_channels
-    else:
-        mc = MulticarrierFrontend.from_offsets(carrier_grid(args.carriers),
-                                               device=dev, conv=args.conv)
     dec = MulticarrierDecoder(args.carriers, auto_decrypt=args.auto_decrypt)
     out_path = args.out_jsonl or (str(Path(args.iq_file).with_suffix(""))
                                   + "_frames.jsonl")
@@ -141,8 +154,11 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--carriers", type=int, default=0,
                    help="decode N carriers of the 25 kHz grid")
     d.add_argument("--conv", choices=CLI_CONVS, default="pallas_bf16",
-                   help="composite conv: " + "; ".join(
-                       f"{k} = {CONV_VARIANTS[k].runs}" for k in CLI_CONVS))
+                   help="channelizer: auto = the staged chain on the CPU "
+                        "(gather-form filterbank with --pfb), s2d on a "
+                        "card; " + "; ".join(
+                            f"{k} = {CONV_VARIANTS[k].runs}"
+                            for k in CLI_CONVS[1:]))
     d.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda if available, "
                         "else cpu)")

@@ -61,3 +61,20 @@ def planted_pfb(offsets_hz=(-50e3, 0.0, 75e3), sample_rate_hz: float = 2.4e6,
     want = {int(np.argmin(np.abs(chans - off))): f"[TXT] {payload}"
             for off, (_seed, payload) in carriers.items()}
     return x, want
+
+
+def planted_grid(grid_indices=(3, 8, 12), num_carriers: int = 16,
+                 sample_rate_hz: float = 2.4e6, num_frames: int = 4) -> tuple:
+    """The real-pair frontend's planted signal on the bench's grid-aligned
+    offsets (k - C//2) * 25 kHz, which its mixer table takes (the odd
+    multiples of 12.5 kHz of carrier_grid(16) are off that grid): index k
+    carries "GRID k MSG" (stream seed k), the length cut to a multiple of
+    the table's 96-sample period.  Returns (x complex64, offsets_hz,
+    {k: "[TXT] GRID k MSG"})."""
+    offsets = ((np.arange(num_carriers) - num_carriers // 2) * 25e3
+               ).astype(np.float32)
+    x = planted({float(offsets[k]): (k, f"GRID {k} MSG")
+                 for k in grid_indices}, sample_rate_hz, num_frames)
+    period = int(round(sample_rate_hz / 25e3))
+    x = x[:len(x) // period * period]
+    return x, offsets, {k: f"[TXT] GRID {k} MSG" for k in grid_indices}
