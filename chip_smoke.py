@@ -40,7 +40,17 @@ Phases (each prints its results; the first failure exits nonzero):
               the real-pair tail, all through `MulticarrierDecoder`.
               Every planted SDS text must come back on its channel, and
               each path's kernel must have launched
-  5. timing   at n = 8,319,936, K = 64, threshold 0.80, with CUDA events:
+  5. single   the single-carrier receiver and the etsi link on the card,
+              plain PyTorch (no kernel of the table; the launch counts
+              are set to 0 before each path and read after it): the
+              golden captures clean, noisy_offset, encrypted and the
+              chunked long_mixed through the ref-exact `SignalProcessor`
+              and `TetraDecoder`, every golden key equal; the CLI's
+              `decode --profile ref-compat | ref-exact | etsi` on planted
+              captures, each text found; `transmit` -> `EtsiLinkReceiver`
+              clean (4 of 4 CRC-ok) and at 12 dB (at least 3 of 4), the
+              MAC bits the ones sent
+  6. timing   at n = 8,319,936, K = 64, threshold 0.80, with CUDA events:
               K1, K3, K1-of (fold 4) and K4 against their plain versions
               and K1, at C2 = 32 and (K1, K3) on the filterbank kernel;
               the 16-carrier (pallas_bf16) and full-band (pallas_bf16,
@@ -49,15 +59,20 @@ Phases (each prints its results; the first failure exits nonzero):
               against the plain mixer + FIR with the peak memory of
               both, and with every phase on sincosf's fast path; the
               staged frontend's stages; RealPairFrontend(64)
-              and the gather-form full band end to end
+              and the gather-form full band end to end; then each
+              single-carrier profile's block demodulator on one
+              262,144-sample chunk, its busy share, the IIR's two
+              filtfilts alone, the host decoder on one chunk and the
+              SCH/F Viterbi decode of 1 and 16 blocks
 
 The line before the last is a JSON object with each kernel's route,
-source, launches in phase 4, error and times; the last line is
+source, launches in phases 4 and 5, error and times; the last line is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -126,11 +141,10 @@ def phase_build():
             print(f"[build]   {line}")
 
 
-def _case(num_carriers, n: int, seed: int, device):
-    """(x, s2d kernel, gc, L, D) on the card: complex noise * 0.1 and the
-    frontend's composite kernel for carrier_grid(num_carriers), or the
-    full-band filterbank's for "pfb"."""
-    import torch
+@functools.lru_cache(maxsize=None)
+def _s2d_kernel(num_carriers, device) -> tuple:
+    """(s2d kernel, gc, L, D) of the frontend for carrier_grid(num_carriers)
+    or, for "pfb", the full-band filterbank's; designed once per run."""
     from tetraear_tpu_torch.models.multicarrier import (
         MulticarrierFrontend, PfbMulticarrierFrontend)
     from tetraear_tpu_torch.ops.channelizer import carrier_grid
@@ -139,10 +153,18 @@ def _case(num_carriers, n: int, seed: int, device):
     else:
         mc = MulticarrierFrontend.from_offsets(carrier_grid(num_carriers),
                                                device=device, conv="s2d")
+    return mc.kernel_s2d, mc.gc, mc.L, mc.decim
+
+
+def _case(num_carriers, n: int, seed: int, device):
+    """(x, s2d kernel, gc, L, D) on the card: complex noise * 0.1 and the
+    frontend's composite kernel for carrier_grid(num_carriers), or the
+    full-band filterbank's for "pfb"."""
+    import torch
     gen = torch.Generator(device=device).manual_seed(seed)
     x = torch.randn(n, dtype=torch.complex64, device=device,
                     generator=gen) * 0.1
-    return x, mc.kernel_s2d, mc.gc, mc.L, mc.decim
+    return (x,) + _s2d_kernel(num_carriers, device)
 
 
 def _held(tag: str, name: str, got, want, bound: float) -> float:
@@ -723,6 +745,224 @@ def phase_timing_staged(device, card: str, t: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# The single-carrier receiver and the etsi link (plain PyTorch on the card)
+# ---------------------------------------------------------------------------
+
+FIXTURES = (Path(__file__).resolve().parent / "tests" / "conformance"
+            / "fixtures")
+SC_CHUNK = 262_144           # the CLI's default --chunk-size
+
+
+def _load_capture(name: str):
+    """A golden capture as complex64 (.cf32: float32 I/Q; .sc16: int16
+    I/Q in SC16-Q11, scaled by 1/2048) and its golden frames."""
+    import numpy as np
+    path = FIXTURES / (f"{name}.sc16" if name == "long_mixed"
+                       else f"{name}.cf32")
+    raw = np.fromfile(path, np.int16 if path.suffix == ".sc16"
+                      else np.float32).astype(np.float32).reshape(-1, 2)
+    scale = 1 / 2048 if path.suffix == ".sc16" else 1.0
+    iq = ((raw[:, 0] + 1j * raw[:, 1]) * scale).astype(np.complex64)
+    lines = (FIXTURES / f"{name}.golden.jsonl").read_text().splitlines()
+    return iq, json.loads(lines[0])["__meta__"], list(map(json.loads,
+                                                          lines[1:]))
+
+
+def _sanitize(obj):
+    """A frame dict as plain JSON values (tools/make_golden.py's rules)."""
+    import dataclasses
+    import numpy as np
+    if isinstance(obj, dict):
+        return {k: _sanitize(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_sanitize(v) for v in obj]
+    if isinstance(obj, np.ndarray):
+        return obj.tolist()
+    if isinstance(obj, (np.integer, np.floating, np.bool_)):
+        return obj.item()
+    if isinstance(obj, (bytes, bytearray)):
+        return obj.hex()
+    if dataclasses.is_dataclass(obj):
+        return _sanitize(dataclasses.asdict(obj))
+    return obj
+
+
+def _check_golden(name: str, frames: list, golden: list) -> None:
+    """Every golden key of every frame equal, or the run fails."""
+    if len(frames) != len(golden):
+        fail("single", f"{name}: {len(frames)} frames vs {len(golden)} golden")
+    for i, (mine, gold) in enumerate(zip(frames, golden)):
+        mine = json.loads(json.dumps(_sanitize(mine), sort_keys=True))
+        bad = [k for k, v in gold.items() if mine.get(k, ...) != v]
+        if bad:
+            fail("single", f"{name}[{i}]: keys {bad} differ from the golden")
+    print(f"[single] golden {name}: {len(frames)} frames, every golden key "
+          "equal")
+
+
+def _golden_run(device) -> None:
+    """The three captures, then long_mixed through the chunked loop (one
+    stateful decoder, a fresh receiver per chunk), ref-exact on the card."""
+    from tetraear_tpu_torch.core.decoder import TetraDecoder
+    from tetraear_tpu_torch.models.receiver import (ReceiverConfig,
+                                                    SignalProcessor)
+    cfg = ReceiverConfig(profile="ref-exact")
+    for name in ("clean", "noisy_offset", "encrypted"):
+        iq, meta, golden = _load_capture(name)
+        sp = SignalProcessor(config=cfg, device=device)
+        symbols = sp.process(iq, freq_offset=meta["freq_offset_hz"])
+        frames = TetraDecoder(auto_decrypt=meta["auto_decrypt"],
+                              device=device).decode(symbols)
+        _check_golden(name, frames, golden)
+    iq, meta, golden = _load_capture("long_mixed")
+    dec = TetraDecoder(auto_decrypt=meta["auto_decrypt"], device=device)
+    frames, n_chunks = [], 0
+    t0 = time.perf_counter()
+    for start in range(0, len(iq), meta["chunk_samples"]):
+        chunk = iq[start:start + meta["chunk_samples"]]
+        if len(chunk) < 1000:
+            break
+        sp = SignalProcessor(config=cfg, device=device)
+        for fr in dec.decode(sp.process(chunk, freq_offset=0.0)):
+            fr["chunk"] = n_chunks
+            frames.append(fr)
+        n_chunks += 1
+    dt = time.perf_counter() - t0
+    if n_chunks != meta["chunks"]:
+        fail("single", f"long_mixed: {n_chunks} chunks vs {meta['chunks']}")
+    _check_golden("long_mixed", frames, golden)
+    print(f"[single] long_mixed ({len(iq)} samples, {n_chunks} chunks) "
+          f"through the ref-exact loop in {dt:.3f} s (host clock) = "
+          f"{len(iq) / dt:,.0f} samples/s")
+
+
+def _single_cli_run(profile: str) -> None:
+    """The port's CLI `decode --profile P` on a planted capture (etsi: a
+    true-rate pi/4 capture); the planted text must come back."""
+    import numpy as np
+    from tetraear_tpu_torch.ui.cli import main
+    from tetraear_tpu_torch.utils.synth import planted_single
+    x, text = planted_single(profile)
+    with tempfile.TemporaryDirectory() as tmp:
+        iq = Path(tmp) / "planted.cf32"
+        out = Path(tmp) / "planted_frames.jsonl"
+        np.asarray(x, np.complex64).view(np.float32).tofile(iq)
+        rc = main(["decode", str(iq), "--profile", profile, "-o", str(out)])
+        texts = [json.loads(line).get("sds_message")
+                 for line in out.read_text().splitlines()]
+    hit = text in texts
+    print(f"[single] cli --profile {profile}: exit {rc}, {len(texts)} frames, "
+          f"{text!r} {'found' if hit else 'MISSING'}")
+    if rc != 0 or not hit:
+        fail("single", f"cli --profile {profile} did not decode {text!r}")
+
+
+def _mac_block(payload: bytes, seed: int):
+    """A 268-bit SCH/F MAC-RESOURCE block: header, payload, random fill."""
+    import numpy as np
+    def u(v, n):
+        return [(v >> (n - 1 - i)) & 1 for i in range(n)]
+    bits = [0] * 5 + u(0x0ABC, 24) + u(len(payload), 6)
+    bits += list(np.unpackbits(np.frombuffer(payload, np.uint8)))
+    bits += list(np.random.default_rng(seed).integers(0, 2, 268 - len(bits)))
+    return np.array(bits, np.uint8)
+
+
+def _etsi_link_run(device) -> None:
+    """transmit -> EtsiLinkReceiver on the card: clean, every frame
+    CRC-ok; at 12 dB, at least 3 of 4; every CRC-ok frame's MAC bits the
+    ones sent."""
+    import numpy as np
+    from tetraear_tpu_torch.models.etsi_link import (EtsiLinkReceiver,
+                                                     transmit)
+    for snr_db, seed, need in ((None, 5, 4), (12, 7, 3)):
+        macs = [_mac_block(b"LINK %d" % i, seed + i) for i in range(4)]
+        iq = transmit(macs, snr_db=snr_db, seed=seed)
+        frames = EtsiLinkReceiver(device=device).receive(iq)
+        good = [f for f in frames if f.crc_ok]
+        same = all(any(np.array_equal(f.mac_bits, m) for m in macs)
+                   for f in good)
+        cond = "clean" if snr_db is None else f"{snr_db} dB"
+        print(f"[single] etsi link SCH/F, {cond}: {len(frames)} bursts "
+              f"found, {len(good)} of {len(macs)} CRC-ok, MAC bits "
+              f"{'equal' if same else 'DIFFER'}")
+        if len(good) < need or not same:
+            fail("single", "etsi link round trip failed")
+
+
+def phase_single(device) -> dict:
+    """The single-carrier paths through their entry points, each with the
+    launch counts set to 0 just before and read just after (they are
+    plain PyTorch: no kernel of the table runs)."""
+    launches = dict.fromkeys(KERNELS, 0)
+    runs = [("golden captures, ref-exact SignalProcessor + TetraDecoder",
+             lambda: _golden_run(device))]
+    runs += [(f"cli decode --profile {p}", lambda p=p: _single_cli_run(p))
+             for p in ("ref-compat", "ref-exact", "etsi")]
+    runs.append(("etsi link round trip", lambda: _etsi_link_run(device)))
+    for tag, run in runs:
+        for name, n in _path(tag, None, run).items():
+            launches[name] += n
+    return launches
+
+
+def phase_timing_single(device, card: str) -> None:
+    """Each profile's block demodulator on one CLI chunk (CUDA events, input
+    already on the card), its device busy share, the IIR's parts, the
+    host decoder and the Viterbi channel decode."""
+    import numpy as np
+    import torch
+    from tetraear_tpu_torch.core.decoder import TetraDecoder
+    from tetraear_tpu_torch.models.receiver import (Frontend, ReceiverConfig,
+                                                    channel_cutoff)
+    from tetraear_tpu_torch.models.receiver_etsi import EtsiReceiver
+    from tetraear_tpu_torch.ops import channel_coding as cc
+    from tetraear_tpu_torch.ops import iir
+    iq = _load_capture("long_mixed")[0]
+    x = torch.as_tensor(iq[SC_CHUNK:2 * SC_CHUNK], device=device)
+    for profile in ("ref-compat", "ref-exact", "etsi"):
+        cfg = ReceiverConfig(profile=profile)
+        fe = (EtsiReceiver if profile == "etsi" else Frontend)(
+            cfg, device=device)
+        ms = _time_ms(lambda: fe(x, 0.0), 20, warmup=3)
+        busy_ms, top = _device_busy_ms(lambda: fe(x, 0.0))
+        busy = ("not measured" if busy_ms is None else
+                f"{busy_ms:.3f} ms ({busy_ms / ms:.1%}); top kernels "
+                + ", ".join(f"{k[:40]} {v:.3f}" for k, v in top[:3]))
+        print(f"[timing] {card}: single carrier {profile} Frontend "
+              f"(n={SC_CHUNK}) {ms:.3f} ms/chunk = "
+              f"{SC_CHUNK / (ms / 1e3):,.0f} samples/s; device busy {busy}")
+        if profile == "ref-exact":
+            res = fe(x, 0.0)
+            symbols = res.hard_symbols[:int(res.count) - 1].cpu().numpy()
+    cut = channel_cutoff(ReceiverConfig(profile="ref-exact"))
+    y = iir.decimate_exact(x, 10)
+    parts = {"decimate_exact (cheby1-8 filtfilt at 2.4 MS/s)":
+             lambda: iir.decimate_exact(x, 10),
+             "butter_filtfilt_exact (butter-4 filtfilt at 240 kHz)":
+             lambda: iir.butter_filtfilt_exact(y, cut)}
+    for name, fn in parts.items():
+        ms = _time_ms(fn, 20, warmup=3)
+        busy_ms, _ = _device_busy_ms(fn)
+        print(f"[timing] {card}: IIR {name}: {ms:.3f} ms, device busy "
+              + ("not measured" if busy_ms is None else f"{busy_ms:.3f} ms"))
+    dec = TetraDecoder(auto_decrypt=True, device=device)
+    dec.decode(symbols)
+    t0 = time.perf_counter()
+    frames = dec.decode(symbols)
+    host = (time.perf_counter() - t0) * 1e3
+    print(f"[timing] {card}: host TetraDecoder.decode of one ref-exact "
+          f"chunk ({len(symbols)} dibits, {len(frames)} frames): "
+          f"{host:.1f} ms (host clock)")
+    for batch in (1, 16):
+        llrs = torch.as_tensor(np.random.default_rng(0).standard_normal(
+            (batch, 432)).astype(np.float32), device=device)
+        ms = _time_ms(lambda: cc.decode_channel_soft(llrs), 5, warmup=1)
+        print(f"[timing] {card}: SCH/F channel decode (Viterbi over 288 "
+              f"trellis steps) of {batch} block(s): {ms:.3f} ms")
+
+
 def main() -> int:
     card = phase_device()
     import torch
@@ -740,9 +980,15 @@ def main() -> int:
     t2 = time.perf_counter()
     launches = phase_decode(device)
     t3 = time.perf_counter()
+    for name, n in phase_single(device).items():
+        launches[name] += n
+    t4 = time.perf_counter()
     t = phase_timing(device, card)
+    t5 = time.perf_counter()
+    phase_timing_single(device, card)
     print(f"[timing] phases: build {t1 - t0:.1f} s, kernel {t2 - t1:.1f} s, "
-          f"decode {t3 - t2:.1f} s, timing {time.perf_counter() - t3:.1f} s")
+          f"decode {t3 - t2:.1f} s, single {t4 - t3:.1f} s, timing "
+          f"{t5 - t4:.1f} s, single timing {time.perf_counter() - t5:.1f} s")
     times = {"s2d_conv": ("k1_bf16", "k1_bf16_plain"),
              "s2d_conv_of": ("k1of_bf16", "k1of_bf16_plain"),
              "s2d_conv_db": ("k3", "k3_plain"),

@@ -1,5 +1,6 @@
-"""The port's `decode` command line on the CPU, its refusals, and the
-rule that the port never imports jax."""
+"""The port's `decode` command line on the CPU — single-carrier in each
+profile and wideband — its refusals, and the rule that the port never
+imports jax."""
 
 import json
 import subprocess
@@ -90,11 +91,50 @@ def test_pfb_decode_finds_planted_texts_on_fftfreq_channels(tmp_path,
 @pytest.mark.parametrize("argv,msg", [
     (["--carriers", "16", "--pfb", "--conv", "s2d_of"], "16-carrier variant"),
     (["--carriers", "16", "--afc"], "not ported yet"),
-    (["--carriers", "0"], "--carriers N"),
 ])
 def test_refuses_what_is_not_ported(planted, argv, msg):
     with pytest.raises(SystemExit, match=msg):
         cli.main(["decode", str(planted[0]), *argv])
+
+
+@pytest.mark.parametrize("profile,chunk", [
+    ("ref-compat", None), ("ref-exact", None), ("etsi", None),
+    ("ref-exact", 65536)])
+def test_single_carrier_decode_equals_jax_cli(tmp_path, capsys, profile,
+                                              chunk):
+    """`decode --profile P` without --carriers on the CPU: the planted
+    text comes back, and the frames JSONL equals the JAX package's own
+    `decode --profile P` on the same file, byte for byte (with a small
+    --chunk-size: three chunks, the last zero-padded)."""
+    from tetraear_tpu_torch.utils.synth import planted_single
+    x, text = planted_single(profile)
+    iq = tmp_path / f"{profile}.cf32"
+    save_iq(iq, x)
+    size = [] if chunk is None else ["--chunk-size", str(chunk)]
+    out = tmp_path / "port.jsonl"
+    rc = cli.main(["decode", str(iq), "--profile", profile, "--device",
+                   "cpu", "-o", str(out), *size])
+    log = capsys.readouterr().out
+    assert rc == 0
+    assert f"single carrier, profile {profile}" in log
+    for tag in ("[DEVICE] cpu", "[READABLE]", "[DONE]", "[PERF]",
+                "[STATS]"):
+        assert tag in log, tag
+    frames = [json.loads(line) for line in out.read_text().splitlines()]
+    assert text in [f.get("sds_message") for f in frames]
+    ref = tmp_path / "jax.jsonl"
+    assert jax_cli.main(["decode", str(iq), "--profile", profile, "-o",
+                         str(ref), *size]) == 0
+    assert out.read_text() == ref.read_text()
+
+
+def test_unknown_profile_is_refused(planted, capsys):
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["decode", str(planted[0]), "--profile", "fast"])
+    assert exc.value.code == 2
+    assert "invalid choice: 'fast'" in capsys.readouterr().err
+    assert cli.build_parser().parse_args(
+        ["decode", "x.cf32"]).profile == "ref-compat"
 
 
 def test_conv_choices_come_from_the_variant_table(planted, capsys):
@@ -180,6 +220,14 @@ def test_cuda_device_without_card_raises(planted):
                   "--device", "cuda"])
 
 
+def test_single_carrier_cuda_device_without_card_raises(planted):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        cli.main(["decode", str(planted[0]), "--profile", "ref-exact",
+                  "--device", "cuda"])
+
+
 def _run(code):
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
@@ -193,6 +241,10 @@ def test_jax_package_loads_after_the_port():
          "from tetraear_tpu_torch.models.multicarrier import "
          "MulticarrierDecoder\n"
          "MulticarrierDecoder(1)\n"
+         "from tetraear_tpu_torch.core.decoder import TetraDecoder\n"
+         "from tetraear_tpu_torch.models.etsi_link import "
+         "EtsiLinkReceiver\n"
+         "TetraDecoder(), EtsiLinkReceiver(device='cpu')\n"
          "assert 'jax' not in sys.modules\n"
          "from tetraear_tpu.models.multicarrier import MulticarrierFrontend\n"
          "crc = sys.modules['tetraear_tpu.ops.crc']\n"
@@ -206,7 +258,9 @@ def test_port_never_imports_jax():
     code = (
         "import sys\n"
         "import tetraear_tpu_torch, tetraear_tpu_torch.models.multicarrier\n"
-        "import tetraear_tpu_torch.ui.cli\n"
+        "import tetraear_tpu_torch.ui.cli, tetraear_tpu_torch.core.decoder\n"
+        "import tetraear_tpu_torch.models.receiver\n"
+        "import tetraear_tpu_torch.models.etsi_link\n"
         "from tetraear_tpu_torch.models.multicarrier import "
         "MulticarrierDecoder\n"
         "from tetraear_tpu_torch.utils.synth import planted_wideband\n"

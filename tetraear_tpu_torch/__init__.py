@@ -6,9 +6,12 @@ stays beside it as the reference; every ported stage is held against it
 on the same input (tests/unit/test_torch_*.py).
 
 Layering mirrors the reference:
-  ops/          plain PyTorch DSP stages (demod, sync, CRC, composite conv)
+  ops/          plain PyTorch DSP stages (filters, IIR, resampling, demod,
+                sync, CRC, composite conv, channel coding, Viterbi)
   ops/kernels/  hand-written CUDA kernels, each beside its plain version
-  models/       the multicarrier pipeline as an nn.Module + host decode
+  models/       the single-carrier, etsi and multicarrier pipelines as
+                nn.Modules, the etsi link, host decode
+  core/         the host frame decoder with its sync scores on the device
   ui/           the `decode` command line
   csrc/         CUDA C++ sources, built with nvcc on first use
 

@@ -48,11 +48,19 @@ def _serve_host_crc() -> None:
 
 def tetra_decoder_class():
     """tetraear_tpu.core.decoder.TetraDecoder (host MAC/SDS decode).  Only
-    `decode_frontend` is jax-free; `decode` reaches the reference's
-    device correlation."""
+    `decode_frontend` is jax-free; `decode` and `find_sync` reach the
+    reference's device correlation, which the port's subclass
+    (`tetraear_tpu_torch.core.decoder.TetraDecoder`) replaces."""
     _serve_host_crc()
     from tetraear_tpu.core.decoder import TetraDecoder
     return TetraDecoder
+
+
+def protocol_parser_class():
+    """tetraear_tpu.protocol.parser.TetraProtocolParser (host MAC parse)."""
+    _serve_host_crc()
+    from tetraear_tpu.protocol.parser import TetraProtocolParser
+    return TetraProtocolParser
 
 
 def synth():

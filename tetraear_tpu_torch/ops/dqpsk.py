@@ -1,6 +1,7 @@
 """pi/4-DQPSK differential demodulation (port of `tetraear_tpu.ops.dqpsk`):
-the reference's phase bins on dphi = atan2(z) and the sector quantizer
-on z = x[n] conj(x[n-1]) itself, and dibit unpacking.
+the reference's phase bins on dphi = atan2(z) and the sector quantizers
+on z = x[n] conj(x[n-1]) itself, the `etsi` profile's soft demod, and
+dibit unpacking.
 
 The reference bins (`quantize_phase_ref`) keep the reference receiver's
 quirk: they are centred on {0, +-pi/2, pi}, not on the pi/4-DQPSK
@@ -10,6 +11,7 @@ transitions.  Every bin edge is an f32 comparison, as in the reference.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -84,3 +86,27 @@ def symbols_to_bits(symbols: torch.Tensor) -> torch.Tensor:
     s = symbols.to(torch.int32) & 3
     bits = torch.stack([(s >> 1) & 1, s & 1], dim=-1)
     return bits.reshape(*s.shape[:-1], s.shape[-1] * 2).to(torch.uint8)
+
+
+def quantize_z_etsi(zr: torch.Tensor, zi: torch.Tensor) -> torch.Tensor:
+    """Maximum-margin quantizer on z: msb = zi < 0, lsb = zr < 0.  uint8."""
+    return ((zi < 0).to(torch.uint8) * 2
+            + (zr < 0).to(torch.uint8)).to(torch.uint8)
+
+
+class SoftDemod(NamedTuple):
+    symbols: torch.Tensor     # uint8 hard decisions (etsi quantizer)
+    dphi: torch.Tensor        # f32 phase differences (radians)
+    magnitude: torch.Tensor   # f32 |z|, a confidence proxy
+    soft_bits: torch.Tensor   # (..., N-1, 2) f32 in [-1, 1], +1 == bit 1
+
+
+def demodulate_soft(symbols: torch.Tensor) -> SoftDemod:
+    """Soft-output demod of the `etsi` profile: the MSB's soft bit is
+    -sin(dphi) (> 0 where dphi < 0, dibits 2 and 3), the LSB's -cos(dphi)
+    (> 0 where |dphi| > pi/2, dibits 1 and 3)."""
+    z = symbols[..., 1:] * symbols[..., :-1].conj()
+    dphi = torch.atan2(z.imag, z.real)
+    soft = torch.stack([-torch.sin(dphi), -torch.cos(dphi)], dim=-1)
+    return SoftDemod(quantize_phase_etsi(dphi), dphi.to(torch.float32),
+                     z.abs().to(torch.float32), soft.to(torch.float32))

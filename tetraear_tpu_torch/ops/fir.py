@@ -1,10 +1,11 @@
 """FIR design (numpy + scipy, host side) and application (PyTorch).
 
-The designers are copies of `tetraear_tpu.ops.fir.design_decimation_fir`
-and `design_channel_fir`: that module imports jax at its top, so the
-port keeps its own numpy copy.  tests/unit/test_torch_ops.py holds both
-`array_equal` to the reference.  `fir_decimate` and `fir_filter_same`
-are the reference's strided real convolutions as F.conv1d, in f32.
+The designers are copies of `tetraear_tpu.ops.fir.design_decimation_fir`,
+`design_channel_fir` and `design_rrc`: that module imports jax at its
+top, so the port keeps its own numpy copy.  tests/unit/test_torch_ops.py
+and test_torch_receiver.py hold them `array_equal` to the reference.
+`fir_decimate` and `fir_filter_same` are the reference's strided real
+convolutions as F.conv1d, in f32.
 """
 
 from __future__ import annotations
@@ -47,6 +48,29 @@ def design_channel_fir(num_taps: int, cutoff_norm: float) -> np.ndarray:
     gain = np.abs(h) ** 2
     gain[-1] = 0.0
     taps = sps.firwin2(num_taps, freqs, gain)
+    return taps.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def design_rrc(sps_: int, alpha: float, span_symbols: int) -> np.ndarray:
+    """Root-raised-cosine matched filter of the `etsi` profile, unit
+    energy (alpha = 0.35, ETSI EN 300 392-2's modulation filter)."""
+    n = sps_ * span_symbols + 1
+    t = (np.arange(n) - (n - 1) / 2) / sps_
+    taps = np.zeros_like(t)
+    for i, ti in enumerate(t):
+        if abs(ti) < 1e-9:
+            taps[i] = 1.0 - alpha + 4 * alpha / np.pi
+        elif abs(abs(4 * alpha * ti) - 1.0) < 1e-9:
+            taps[i] = (alpha / np.sqrt(2)) * (
+                (1 + 2 / np.pi) * np.sin(np.pi / (4 * alpha))
+                + (1 - 2 / np.pi) * np.cos(np.pi / (4 * alpha)))
+        else:
+            num = (np.sin(np.pi * ti * (1 - alpha))
+                   + 4 * alpha * ti * np.cos(np.pi * ti * (1 + alpha)))
+            den = np.pi * ti * (1 - (4 * alpha * ti) ** 2)
+            taps[i] = num / den
+    taps /= np.sqrt(np.sum(taps ** 2))
     return taps.astype(np.float32)
 
 

@@ -78,3 +78,22 @@ def planted_grid(grid_indices=(3, 8, 12), num_carriers: int = 16,
     period = int(round(sample_rate_hz / 25e3))
     x = x[:len(x) // period * period]
     return x, offsets, {k: f"[TXT] GRID {k} MSG" for k in grid_indices}
+
+
+def planted_single(profile: str = "ref-compat", payload: str = "HELLO HELLO",
+                   num_frames: int = 4, seed: int = 2,
+                   sample_rate_hz: float = 2.4e6) -> tuple:
+    """One carrier at 0 Hz of golden MAC-RESOURCE slots carrying the SDS
+    text `payload`, as tools/make_fixture.py makes it for each profile:
+    the reference's transition mapping at 130 samples per symbol for
+    ref-compat and ref-exact, true pi/4-DQPSK at 18 kHz for etsi.
+    Returns (x complex64, "[TXT] payload")."""
+    sy = synth()
+    etsi = profile == "etsi"
+    st = sy.make_stream_bits(num_frames=num_frames, lead_bits=64, seed=seed,
+                             golden=True, payload=payload.encode())
+    ph = sy.synthesize_symbol_phasors(sy.bits_to_symbols(st),
+                                      mapping="pi4" if etsi else "ref")
+    x = sy.upsample_hold(ph, sample_rate_hz,
+                         18000.0 if etsi else sample_rate_hz / 130.0)
+    return x.astype(np.complex64), f"[TXT] {payload}"
