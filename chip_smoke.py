@@ -2,10 +2,15 @@
 
     python3 chip_smoke.py
 
+Before anything else it installs an import guard that refuses `jax` and
+the JAX package `tetraear_tpu` (not `tetraear_tpu_torch`): the run itself
+shows that the port needs neither.
+
 Phases (each prints its results; the first failure exits nonzero):
   1. device   refuse to run without CUDA; print the card's name and
               power limit as nvidia-smi reports them
-  2. build    compile K1 / K1-of (tetraear_tpu_torch/csrc/s2d_conv.cu),
+  2. build    compile K1 / K1-of f32 (tetraear_tpu_torch/csrc/s2d_conv.cu),
+              K1 / K1-of bf16 on the tensor cores (csrc/s2d_conv_tc.cu),
               K3 (csrc/s2d_conv_db.cu), K4 (csrc/s2d_conv_dt.cu) and K5
               (csrc/fused_channelize.cu) with nvcc for sm_90a, one nvcc per
               source, all at once; print the build times and ptxas's
@@ -13,14 +18,15 @@ Phases (each prints its results; the first failure exits nonzero):
   3. kernel   each kernel against its plain PyTorch version on the card:
               K1, f32 and bf16, at C2 = 32 with the bench's n = 8,319,936,
               at C2 = 192 with a ragged n = 1,000,007, and on the full-band
-              filterbank kernel (C2 = 192, gc = 0) at n = 8,319,936;
-              K3 at the 16-carrier bench shape, on the filterbank kernel
-              at the bench n and the ragged n, and on inputs that start
-              one sample into their storage (off the 16-byte grid of its
-              async copies), each bit-equal to K1 f32; K1-of at
-              fold 4 (f32 and bf16) at the bench shape and folds 6 and 1
-              at the ragged n; K4 (dt, dt_bf16) at the bench shape and on
-              the filterbank kernel at the ragged n; K5 against
+              filterbank kernel (C2 = 192, gc = 0) at n = 8,319,936, bf16
+              also at the ragged n on an input one sample into its
+              storage; K3 at the 16-carrier bench shape, on the filterbank
+              kernel at the bench n and the ragged n, and on inputs that
+              start one sample into their storage (off the 16-byte grid of
+              its async copies), each bit-equal to K1 f32; K1-of at fold 4
+              (f32 and bf16) at the bench shape and folds 6 and 1 at the
+              ragged n; K4 (dt, dt_bf16) at the bench shape and on the
+              filterbank kernel at the ragged n; K5 against
               mix_to_baseband + fir_decimate at carrier_grid(16), the
               frontend's 121 taps, the bench n and start 0, and at the
               ragged n and start 10^7, both also against a float64
@@ -28,18 +34,24 @@ Phases (each prints its results; the first failure exits nonzero):
   4. decode   the main paths through the entry points a user calls, each
               on a planted signal, every launch count set to 0 just before
               and read just after: `tetraear_tpu_torch.ui.cli.main(
-              ["decode", f, "--carriers", "16", "--conv", "pallas_bf16"])`
-              and the same with "--pfb" (all 96 channels; texts on their
-              fftfreq channels), both launching K1;
+              ["decode", f, "--carriers", "16", "--conv", "pallas_bf16"])`,
+              the same with "--pfb" (all 96 channels; texts on their
+              fftfreq channels), both launching K1 bf16, and with
+              "--conv", "pallas" (K1 f32);
               `PfbMulticarrierFrontend(conv="pallas_db")` (K3),
-              `MulticarrierFrontend(conv="pallas_of4_bf16")` (K1-of), the
-              staged `StagedMulticarrierFrontend` (K5),
+              `MulticarrierFrontend(conv="pallas_of4_bf16")` and
+              `"pallas_of4"` (K1-of), the staged
+              `StagedMulticarrierFrontend` (K5),
               `RealPairFrontend(num_candidates=64)` on the bench's
               grid-aligned offsets, the gather-form `GatherPfbFrontend`
               and the op-level `pallas_s2d_conv(variant="dt")` (K4) with
               the real-pair tail, all through `MulticarrierDecoder`.
               Every planted SDS text must come back on its channel, and
-              each path's kernel must have launched
+              each path's kernel must have launched.  Then, uncounted, the
+              16-carrier and full-band `pallas_bf16` and the
+              `pallas_of4_bf16` frontends on the planted signals give the
+              candidates (positions, frames, CRC verdicts) that the same
+              frontend gives with the plain bf16 conv
   5. single   the single-carrier receiver and the etsi link on the card,
               plain PyTorch (no kernel of the table; the launch counts
               are set to 0 before each path and read after it): the
@@ -51,23 +63,25 @@ Phases (each prints its results; the first failure exits nonzero):
               clean (4 of 4 CRC-ok) and at 12 dB (at least 3 of 4), the
               MAC bits the ones sent
   6. timing   at n = 8,319,936, K = 64, threshold 0.80, with CUDA events:
-              K1, K3, K1-of (fold 4) and K4 against their plain versions
-              and K1, at C2 = 32 and (K1, K3) on the filterbank kernel;
-              the 16-carrier (pallas_bf16) and full-band (pallas_bf16,
-              pallas_db) frontends' stages, end-to-end rate, device busy
-              share (torch.profiler), peak memory and host decode; K5
-              against the plain mixer + FIR with the peak memory of
-              both, and with every phase on sincosf's fast path; the
-              staged frontend's stages; RealPairFrontend(64)
-              and the gather-form full band end to end; then each
-              single-carrier profile's block demodulator on one
-              262,144-sample chunk, its busy share, the IIR's two
-              filtfilts alone, the host decoder on one chunk and the
-              SCH/F Viterbi decode of 1 and 16 blocks
+              each kernel against its plain version, its bound on this
+              card and one PyTorch call of the same function (cuDNN's
+              `F.conv1d`, TF32 off for f32; bf16 operands and a bf16
+              output for the bf16 routes): K1 f32 and bf16, K3, K1-of
+              (fold 4) and K4 at C2 = 32, (K1 bf16, K3) on the filterbank
+              kernel; the 16-carrier (pallas_bf16) and full-band
+              (pallas_bf16, pallas_db) frontends' stages, end-to-end rate,
+              device busy share (torch.profiler), peak memory and host
+              decode; K5 against the plain mixer + FIR with the peak
+              memory of both, and with every phase on sincosf's fast path;
+              the staged frontend's stages; RealPairFrontend(64) and the
+              gather-form full band end to end; then each single-carrier
+              profile's block demodulator on one 262,144-sample chunk, its
+              busy share, the IIR's two filtfilts alone, the host decoder
+              on one chunk and the SCH/F Viterbi decode of 1 and 16 blocks
 
 The line before the last is a JSON object with each kernel's route,
-source, launches in phases 4 and 5, error and times; the last line is
-{"ok": true, "device": {...}}.
+source, launches in phases 4 and 5, error, times and bound; the last
+line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -80,19 +94,59 @@ import tempfile
 import time
 from pathlib import Path
 
+
+class RefuseReference:
+    """A sys.meta_path finder that refuses jax and the JAX package
+    `tetraear_tpu` (and everything under them), so that this run proves
+    the port imports neither; `tetraear_tpu_torch` is another name."""
+
+    REFUSED = ("jax", "jaxlib", "tetraear_tpu")
+
+    def find_spec(self, name, path=None, target=None):
+        if name.partition(".")[0] in self.REFUSED:
+            raise ModuleNotFoundError(
+                f"{name} is refused: the port must not import it", name=name)
+        return None
+
+
+def refuse_reference() -> None:
+    loaded = [m for m in sys.modules
+              if m.partition(".")[0] in RefuseReference.REFUSED]
+    if loaded:
+        raise SystemExit(f"refused modules already imported: {loaded[:5]}")
+    sys.meta_path.insert(0, RefuseReference())
+
+
+refuse_reference()
+
 BENCH_N = 8_319_936          # bench.py's n per block
 RAGGED_N = 1_000_007
 TOL = 4e-6                   # x max|plain|: f32 sum order only (K5:
                              # the 121-tap FIR's, plus the <= 2 ulp spread
                              # of sincosf against torch.sin / torch.cos)
 BF16_TOL = 1e-2              # x max|f32 plain|: bf16 operand rounding
+
+
+def tc_tol(k2) -> float:
+    """The tensor-core route's bound for s2d weights k2 (C2, 2D, Lp): TOL
+    up to K = 2D * Lp = 1600, the main path's depth, then TOL * K / 1600:
+    each of the K / 16 MMA steps truncates its f32 sum, a bias that adds
+    up with depth (K = 5082 at 8 MS/s: 8.05e-6 x max|plain| measured)."""
+    return TOL * max(1.0, k2.shape[1] * k2.shape[2] / 1600)
+PEAK_BF16 = 989e12           # dense bf16 tensor cores, FLOP/s (H100 SXM)
+PEAK_F32 = 67e12             # f32 outside the tensor cores, FLOP/s
+PEAK_BYTES = 3.35e12         # HBM3, bytes/s
 PLANTED = (3, 8, 12)         # grid indices of carrier_grid(16)
 K5_START = 10_000_000        # a start index where |phase| reaches ~5e6 rad
 KERNELS = {                  # wrapper -> (source, TPU kernel it replaces)
     "s2d_conv": ("tetraear_tpu_torch/csrc/s2d_conv.cu",
                  "tetraear_tpu/ops/pallas/s2d_conv.py:71"),
+    "s2d_conv_bf16": ("tetraear_tpu_torch/csrc/s2d_conv_tc.cu",
+                      "tetraear_tpu/ops/pallas/s2d_conv.py:71"),
     "s2d_conv_of": ("tetraear_tpu_torch/csrc/s2d_conv.cu",
                     "tetraear_tpu/ops/pallas/s2d_conv.py:371"),
+    "s2d_conv_of_bf16": ("tetraear_tpu_torch/csrc/s2d_conv_tc.cu",
+                         "tetraear_tpu/ops/pallas/s2d_conv.py:371"),
     "s2d_conv_db": ("tetraear_tpu_torch/csrc/s2d_conv_db.cu",
                     "tetraear_tpu/ops/pallas/s2d_conv.py:162"),
     "s2d_conv_dt": ("tetraear_tpu_torch/csrc/s2d_conv_dt.cu",
@@ -142,29 +196,33 @@ def phase_build():
 
 
 @functools.lru_cache(maxsize=None)
-def _s2d_kernel(num_carriers, device) -> tuple:
+def _s2d_kernel(num_carriers, device, msps: float = 2.4) -> tuple:
     """(s2d kernel, gc, L, D) of the frontend for carrier_grid(num_carriers)
-    or, for "pfb", the full-band filterbank's; designed once per run."""
+    or, for "pfb", the full-band filterbank's, at `msps` MS/s; designed
+    once per run."""
+    from tetraear_tpu_torch.config import ReceiverConfig
     from tetraear_tpu_torch.models.multicarrier import (
         MulticarrierFrontend, PfbMulticarrierFrontend)
     from tetraear_tpu_torch.ops.channelizer import carrier_grid
+    cfg = ReceiverConfig(sample_rate_hz=msps * 1e6)
     if num_carriers == "pfb":
-        mc = PfbMulticarrierFrontend.from_config(device=device, conv="s2d")
+        mc = PfbMulticarrierFrontend.from_config(cfg, device=device,
+                                                 conv="s2d")
     else:
         mc = MulticarrierFrontend.from_offsets(carrier_grid(num_carriers),
-                                               device=device, conv="s2d")
+                                               cfg, device=device, conv="s2d")
     return mc.kernel_s2d, mc.gc, mc.L, mc.decim
 
 
-def _case(num_carriers, n: int, seed: int, device):
+def _case(num_carriers, n: int, seed: int, device, msps: float = 2.4):
     """(x, s2d kernel, gc, L, D) on the card: complex noise * 0.1 and the
     frontend's composite kernel for carrier_grid(num_carriers), or the
-    full-band filterbank's for "pfb"."""
+    full-band filterbank's for "pfb", at `msps` MS/s."""
     import torch
     gen = torch.Generator(device=device).manual_seed(seed)
     x = torch.randn(n, dtype=torch.complex64, device=device,
                     generator=gen) * 0.1
-    return (x,) + _s2d_kernel(num_carriers, device)
+    return (x,) + _s2d_kernel(num_carriers, device, msps)
 
 
 def _held(tag: str, name: str, got, want, bound: float) -> float:
@@ -172,9 +230,9 @@ def _held(tag: str, name: str, got, want, bound: float) -> float:
     err = (got - want).abs().max().item()
     scale = want.abs().max().item()
     ok = got.shape == want.shape and err <= bound * scale
-    print(f"[kernel] {tag}: max|{name}-plain| = {err:.3e}, max|plain| = "
-          f"{scale:.4f}, bound {bound} x max|plain| = {bound * scale:.3e}: "
-          f"{'ok' if ok else 'FAIL'}")
+    print(f"[kernel] {tag}: max|{name}-plain| = {err:.3e} = "
+          f"{err / scale:.3e} x max|plain| ({scale:.4f}), bound {bound:.4g} x "
+          f"max|plain| = {bound * scale:.3e}: {'ok' if ok else 'FAIL'}")
     if not ok:
         fail("kernel", f"{name} disagrees with its plain version "
                        f"(shape {tuple(got.shape)} vs {tuple(want.shape)})")
@@ -199,18 +257,40 @@ def phase_kernel(device) -> dict:
     from tetraear_tpu_torch.ops.kernels import s2d_conv as kc
     worst = dict.fromkeys(KERNELS, 0.0)
     # K1 at both widths and on the filterbank kernel (gc = 0: pad_l =
-    # 767, the first ~77 windows straddle the left zero pad)
-    for num_carriers, n in ((16, BENCH_N), (96, RAGGED_N), ("pfb", BENCH_N)):
-        x, k2, gc, L, decim = _case(num_carriers, n, 1, device)
-        for bf16 in (False, True):
-            got = _launched("s2d_conv", lambda: kc.s2d_conv(
-                x, k2, gc, L, decim, bf16=bf16))
-            want = kc.s2d_conv_plain(x, k2, gc, L, decim, bf16=bf16)
-            tag = (f"K1 {num_carriers} C2={k2.shape[0]} gc={gc} n={n} "
-                   f"{'bf16' if bf16 else 'f32'}")
-            worst["s2d_conv"] = max(worst["s2d_conv"],
-                                    _held(tag, "K1", got, want, TOL))
-        del x, got, want
+    # 767, the first ~77 windows straddle the left zero pad); bf16 runs
+    # on the tensor cores (s2d_conv_bf16), also from one sample into the
+    # input's storage and at other rates: 8 MS/s (2D = 66: 4-byte A
+    # loads, weights streamed through shared memory), the full band at
+    # 3.2 MS/s (D = 13) and 16 carriers at 20 MS/s (2D = 166: a window
+    # too large for the register prefetch)
+    for num_carriers, n, start, msps in (
+            (16, BENCH_N, 0, 2.4), (96, RAGGED_N, 0, 2.4),
+            ("pfb", BENCH_N, 0, 2.4), (16, RAGGED_N, 1, 2.4),
+            (16, RAGGED_N, 1, 8.0), ("pfb", RAGGED_N, 0, 3.2),
+            (16, 400_009, 0, 20.0)):
+        x, k2, gc, L, decim = _case(num_carriers, n + start, 1, device, msps)
+        x = x[start:]
+        f32 = kc.s2d_conv_plain(x, k2, gc, L, decim)
+        tc = kc.tc_pack_k1(k2)
+        for bf16 in ((False, True) if start == 0 and msps == 2.4
+                     else (True,)):
+            name = "s2d_conv_bf16" if bf16 else "s2d_conv"
+            got = _launched(name, lambda: kc.s2d_conv(
+                x, k2, gc, L, decim, bf16=bf16, tc=tc))
+            want = (kc.s2d_conv_plain(x, k2, gc, L, decim, bf16=True)
+                    if bf16 else f32)
+            tag = (f"K1 {num_carriers} {msps} MS/s C2={k2.shape[0]} "
+                   f"2D={k2.shape[1]} gc={gc} n={n} start={start} "
+                   f"{'bf16' if bf16 else 'f32'}"
+                   + (f" (tensor cores: {tc.rows} rows, {tc.tile_m} "
+                      f"positions, fold {tc.fold}, {tc.kchunk} of "
+                      f"{tc.packed.shape[1]} k-steps resident)"
+                      if bf16 else ""))
+            worst[name] = max(worst[name], _held(
+                tag, "K1", got, want, tc_tol(k2) if bf16 else TOL))
+            if bf16:
+                _held(tag + " vs f32", "K1", got, f32, BF16_TOL)
+        del x, got, want, f32
     # K3: bit-equal to K1 f32, so within the sum-order bound of plain.
     # start = 1 begins the input one sample into its storage, off the
     # 16-byte grid of K3's async copies; the full-band bench shape is the
@@ -234,21 +314,26 @@ def phase_kernel(device) -> dict:
         worst["s2d_conv_db"] = max(worst["s2d_conv_db"],
                                    _held(tag, "K3", got, want, TOL))
         del x, got, want, k1
-    # K1-of against the folded plain version (f32 sum order for both
-    # operand types) and, for bf16, against the f32 result
-    for fold, n in ((4, BENCH_N), (6, RAGGED_N), (1, RAGGED_N)):
-        x, k2, gc, L, decim = _case(16, n, 3, device)
+    # K1-of against the folded plain version (f32 sum order) and, for
+    # bf16, against the f32 result; fold 3 at 1.8 MS/s (D = 7) takes
+    # 4-byte A loads
+    for fold, n, msps in ((4, BENCH_N, 2.4), (6, RAGGED_N, 2.4),
+                          (1, RAGGED_N, 2.4), (3, RAGGED_N, 1.8)):
+        x, k2, gc, L, decim = _case(16, n, 3, device, msps)
         k_of = torch.as_tensor(fused.fold_s2d_kernel(k2.cpu().numpy(), fold),
                                device=device)
         f32 = kc.s2d_conv_of_plain(x, k_of, gc, L, decim, fold)
-        for bf16 in (False, True):
-            got = _launched("s2d_conv_of", lambda: kc.s2d_conv_of(
-                x, k_of, gc, L, decim, fold, bf16=bf16))
+        tc = kc.tc_pack(k_of, fold)
+        for bf16 in ((False, True) if msps == 2.4 else (True,)):
+            name = "s2d_conv_of_bf16" if bf16 else "s2d_conv_of"
+            got = _launched(name, lambda: kc.s2d_conv_of(
+                x, k_of, gc, L, decim, fold, bf16=bf16, tc=tc))
             want = kc.s2d_conv_of_plain(x, k_of, gc, L, decim, fold,
                                         bf16=bf16)
-            tag = f"K1-of fold={fold} n={n} {'bf16' if bf16 else 'f32'}"
-            worst["s2d_conv_of"] = max(worst["s2d_conv_of"],
-                                       _held(tag, "K1-of", got, want, TOL))
+            tag = (f"K1-of fold={fold} {msps} MS/s n={n} "
+                   f"{'bf16' if bf16 else 'f32'}")
+            worst[name] = max(worst[name], _held(
+                tag, "K1-of", got, want, tc_tol(k2) if bf16 else TOL))
             if bf16:
                 _held(tag + " vs f32", "K1-of", got, f32, BF16_TOL)
         del x, got, want, f32
@@ -393,6 +478,37 @@ def _cli_run(tag: str, argv: list, x, want: dict) -> None:
     _check_texts(tag, want, got)
 
 
+def _same_candidates(tag: str, mc, x, rows) -> None:
+    """mc(x) through its kernel and the same frontend with the plain bf16
+    conv give equal candidates on the planted rows: validity, positions,
+    frame bits and CRC verdicts (uncounted launches)."""
+    import numpy as np
+    import torch
+    from tetraear_tpu_torch.ops.kernels import s2d_conv as kc
+    x = torch.as_tensor(x, device=mc.device)
+    args = (mc.gc, mc.L, mc.decim)
+    out = (kc.s2d_conv_of_plain(x, mc.kernel_of, *args, mc.fold, bf16=True)
+           if mc.fold else
+           kc.s2d_conv_plain(x, mc.kernel_s2d, *args, bf16=True))
+    c = out.shape[0] // 2
+    plain = mc.candidates(*mc.demod(out[:c], out[c:]))
+    got = mc(x)
+    fields = ("cand_valid", "cand_pos", "frame_bits", "crc_ok")
+    a = {f: getattr(got, f).cpu().numpy() for f in fields}
+    b = {f: getattr(plain, f).cpu().numpy() for f in fields}
+    same = True
+    for r in rows:
+        va, vb = a["cand_valid"][r], b["cand_valid"][r]
+        same &= bool(np.array_equal(va, vb)) and all(
+            np.array_equal(a[f][r][va], b[f][r][vb]) for f in fields[1:])
+    print(f"[decode] {tag}: candidates on planted rows {sorted(rows)} "
+          f"({int(a['cand_valid'][list(rows)].sum())} valid, "
+          f"{int((a['crc_ok'] & a['cand_valid'])[list(rows)].sum())} CRC-ok) "
+          f"{'equal' if same else 'DIFFER'} to the plain bf16 conv's")
+    if not same:
+        fail("decode", f"{tag}: candidates differ from the plain bf16 conv's")
+
+
 def phase_decode(device) -> dict:
     import torch
     from tetraear_tpu_torch.models.multicarrier import (
@@ -412,27 +528,35 @@ def phase_decode(device) -> dict:
         for name, n in counts.items():
             launches[name] += n
 
-    add(_path("cli 16 carriers pallas_bf16", "s2d_conv", lambda: _cli_run(
-        "cli 16 carriers pallas_bf16",
-        ["--carriers", "16", "--conv", "pallas_bf16"], x16, want16)))
-    add(_path("cli --pfb pallas_bf16", "s2d_conv", lambda: _cli_run(
-        "cli --pfb pallas_bf16",
-        ["--carriers", "16", "--pfb", "--conv", "pallas_bf16"], xpfb,
-        wantpfb)))
+    for tag, argv, x, want, wrapper in (
+            ("cli 16 carriers pallas_bf16",
+             ["--carriers", "16", "--conv", "pallas_bf16"], x16, want16,
+             "s2d_conv_bf16"),
+            ("cli --pfb pallas_bf16",
+             ["--carriers", "16", "--pfb", "--conv", "pallas_bf16"], xpfb,
+             wantpfb, "s2d_conv_bf16"),
+            ("cli 16 carriers pallas (f32)",
+             ["--carriers", "16", "--conv", "pallas"], x16, want16,
+             "s2d_conv")):
+        add(_path(tag, wrapper, lambda: _cli_run(tag, argv, x, want)))
 
     def module_run(tag, mc, x, num_channels, want):
-        frames = MulticarrierDecoder(num_channels).decode(mc(x))
+        frames = MulticarrierDecoder(num_channels,
+                                     device=device).decode(mc(x))
         _check_texts(tag, want, _texts(frames))
 
     pfb = PfbMulticarrierFrontend.from_config(device=device,
                                               conv="pallas_db")
     add(_path("PfbMulticarrierFrontend pallas_db", "s2d_conv_db",
               lambda: module_run("pfb pallas_db", pfb, xpfb, 96, wantpfb)))
-    mc = MulticarrierFrontend.from_offsets(carrier_grid(16), device=device,
-                                           conv="pallas_of4_bf16")
-    add(_path("MulticarrierFrontend pallas_of4_bf16", "s2d_conv_of",
-              lambda: module_run("16 carriers pallas_of4_bf16", mc, x16, 16,
-                                 want16)))
+    of4 = {}
+    for conv, wrapper in (("pallas_of4_bf16", "s2d_conv_of_bf16"),
+                          ("pallas_of4", "s2d_conv_of")):
+        of4[conv] = mc = MulticarrierFrontend.from_offsets(
+            carrier_grid(16), device=device, conv=conv)
+        add(_path(f"MulticarrierFrontend {conv}", wrapper,
+                  lambda: module_run(f"16 carriers {conv}", mc, x16, 16,
+                                     want16)))
     staged = StagedMulticarrierFrontend.from_offsets(carrier_grid(16),
                                                      device=device)
     add(_path("StagedMulticarrierFrontend (fused=False)", "fused_channelize",
@@ -446,6 +570,7 @@ def phase_decode(device) -> dict:
     gather = GatherPfbFrontend(device=device)
     add(_path("GatherPfbFrontend (PFB fused=False)", None, lambda: module_run(
         "pfb gather", gather, xpfb, 96, wantpfb)))
+    mc = of4["pallas_of4"]
 
     def dt_run():
         # the op-level entry point of K4, then the real-pair tail
@@ -454,12 +579,21 @@ def phase_decode(device) -> dict:
                               variant="dt")
         res = _demod_from_pair(out[:16], out[16:], mc.sps,
                                z_rot=(mc.z_cos, mc.z_sin))
-        frames = MulticarrierDecoder(16).decode(
+        frames = MulticarrierDecoder(16, device=device).decode(
             mc.candidates(res.bits, res.sync_corr, res.count))
         _check_texts("16 carriers pallas_s2d_conv dt", want16,
-                     _texts(frames))
+                      _texts(frames))
     add(_path("pallas_s2d_conv(variant='dt') + real-pair tail",
               "s2d_conv_dt", dt_run))
+    # the tensor-core route's decisions against the plain bf16 conv's
+    _same_candidates("16 carriers pallas_bf16", MulticarrierFrontend.
+                     from_offsets(carrier_grid(16), device=device,
+                                  conv="pallas_bf16"), x16, want16)
+    _same_candidates("full band pallas_bf16", PfbMulticarrierFrontend.
+                     from_config(device=device, conv="pallas_bf16"), xpfb,
+                     wantpfb)
+    _same_candidates("16 carriers pallas_of4_bf16", of4["pallas_of4_bf16"],
+                     x16, want16)
     return launches
 
 
@@ -531,7 +665,7 @@ def _frontend_timing(tag: str, mc, x, card: str, iters: int) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2**20
     result = mc(x)
     rows = result.bits.shape[0]
-    dec = MulticarrierDecoder(rows)
+    dec = MulticarrierDecoder(rows, device=x.device)
     t0 = time.perf_counter()
     frames = dec.decode(result)
     t["host_decode"] = (time.perf_counter() - t0) * 1e3
@@ -556,6 +690,46 @@ def _frontend_timing(tag: str, mc, x, card: str, iters: int) -> dict:
     return t
 
 
+def _bound(flops: float, nbytes: float, peak: float) -> tuple:
+    """(ms, "operations" | "bytes"): the least time this card could take,
+    the operations at `peak` FLOP/s or the bytes at PEAK_BYTES."""
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return ((ops_ms, "operations") if ops_ms >= bytes_ms
+            else (bytes_ms, "bytes"))
+
+
+def _conv_work(x, kernel, fold: int, decim: int) -> tuple:
+    """(FLOP, bytes) of the s2d conv of x with `kernel` (rows, 2D, taps):
+    2 x rows x 2D x taps per (folded) output position; x read once, the
+    f32 kernel read once, the (rows / fold, ceil(N/D)) f32 output written
+    once."""
+    rows, ich, taps = kernel.shape
+    m_out = -(-x.shape[0] // decim)
+    m_pos = -(-m_out // fold)
+    flops = 2.0 * rows * ich * taps * m_pos
+    nbytes = 8.0 * x.shape[0] + 4.0 * kernel.numel() + 4.0 * rows // fold * m_out
+    return flops, nbytes
+
+
+def _library_conv(x, kernel, gc: int, L: int, decim: int, fold: int,
+                  dtype):
+    """One cuDNN F.conv1d (stride fold) over the (1, 2D, W) view of x,
+    made contiguous in `dtype` beforehand, with the kernel in `dtype`:
+    the same contraction as K1 / K1-of (bf16: bf16 operands, a bf16
+    output).  The port never calls it; it is the yardstick."""
+    import torch.nn.functional as F
+    from tetraear_tpu_torch.ops.kernels import s2d_conv as kc
+    n = x.shape[0]
+    m_out = -(-n // decim)
+    pad_l = L - 1 - gc
+    wr = -(-m_out // fold)
+    total = max(((wr - 1) * fold + kernel.shape[-1]) * decim,
+                -(-(pad_l + n) // decim) * decim)
+    xv = kc._x2_view(x, pad_l, total, decim).to(dtype).contiguous()
+    kd = kernel.to(dtype)
+    return lambda: F.conv1d(xv, kd, stride=fold)
+
+
 def phase_timing(device, card: str) -> dict:
     import torch
     from tetraear_tpu_torch.models.multicarrier import (
@@ -564,43 +738,80 @@ def phase_timing(device, card: str) -> dict:
     from tetraear_tpu_torch.ops.channelizer import carrier_grid
     from tetraear_tpu_torch.ops.kernels import s2d_conv as kc
     x, k2, gc, L, decim = _case(16, BENCH_N, 2, device)
-    m_out = -(-BENCH_N // decim)
-    flops = 2 * k2.shape[0] * k2.shape[1] * k2.shape[2] * m_out
-    t = {}
+    tc = kc.tc_pack_k1(k2)       # the tensor-core route's weights, as a
+    t = {}                       # frontend packs them once
 
-    def report(name, key, kernel_fn, plain_fn, plain_name, rows=32,
-               iters=10):
+    def report(name, key, kernel_fn, plain_fn, plain_name, work, peak,
+               library_fn=None, iters=10):
         ms, plain_ms, runs = _pair_ms(kernel_fn, plain_fn, iters)
-        t[key], t[key + "_plain"] = ms, plain_ms
-        print(f"[timing] {card}: {name} {runs[0]:.3f} / {runs[1]:.3f} ms "
-              f"({flops * rows / 32 / ms / 1e9:.1f} TFLOP/s of the "
-              f"un-folded conv), {plain_name} {runs[2]:.3f} / "
-              f"{runs[3]:.3f} ms")
+        bound_ms, by = _bound(*work, peak)
+        lib_ms = None
+        if library_fn is not None:
+            lib_ms = (_time_ms(library_fn, iters)
+                      + _time_ms(library_fn, iters)) / 2
+        t[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                  "bound_by": by, "library_ms": lib_ms}
+        lib = ("" if lib_ms is None else
+               f"; cuDNN F.conv1d ({'bf16 operands and output' if peak == PEAK_BF16 else 'f32, TF32 off'}) {lib_ms:.4f} ms")
+        print(f"[timing] {card}: {name} {runs[0]:.4f} / {runs[1]:.4f} ms "
+              f"= {work[0] / ms / 1e9:.1f} TFLOP/s, bound {bound_ms:.4f} ms "
+              f"({by}; {work[0] / 1e9:.1f} GFLOP, {work[1] / 1e6:.1f} MB) "
+              f"= {bound_ms / ms:.1%} of it; {plain_name} {runs[2]:.4f} / "
+              f"{runs[3]:.4f} ms{lib}")
 
     for bf16 in (True, False):
         tag = "bf16" if bf16 else "f32"
-        report(f"K1 {tag}", f"k1_{tag}",
-               lambda: kc.s2d_conv(x, k2, gc, L, decim, bf16=bf16),
+        report(f"K1 {tag}{' (tensor cores)' if bf16 else ''}", f"k1_{tag}",
+               lambda: kc.s2d_conv(x, k2, gc, L, decim, bf16=bf16, tc=tc),
                lambda: kc.s2d_conv_plain(x, k2, gc, L, decim, bf16=bf16),
-               "plain F.conv1d")
+               "plain F.conv1d", _conv_work(x, k2, 1, decim),
+               PEAK_BF16 if bf16 else PEAK_F32,
+               _library_conv(x, k2, gc, L, decim, 1,
+                             torch.bfloat16 if bf16 else torch.float32))
     report("K3 f32", "k3",
            lambda: kc.s2d_conv_db(x, k2, gc, L, decim),
-           lambda: kc.s2d_conv_plain(x, k2, gc, L, decim), "plain F.conv1d")
+           lambda: kc.s2d_conv_plain(x, k2, gc, L, decim), "plain F.conv1d",
+           _conv_work(x, k2, 1, decim), PEAK_F32,
+           _library_conv(x, k2, gc, L, decim, 1, torch.float32))
     report("K3 f32", "k3_vs_k1",
            lambda: kc.s2d_conv_db(x, k2, gc, L, decim),
-           lambda: kc.s2d_conv(x, k2, gc, L, decim), "K1 f32")
+           lambda: kc.s2d_conv(x, k2, gc, L, decim), "K1 f32",
+           _conv_work(x, k2, 1, decim), PEAK_F32)
     k_of = torch.as_tensor(fused.fold_s2d_kernel(k2.cpu().numpy(), 4),
                            device=device)
+    tc_of = kc.tc_pack(k_of, 4)
     for bf16 in (True, False):
         tag = "bf16" if bf16 else "f32"
-        report(f"K1-of fold 4 {tag}", f"k1of_{tag}",
-               lambda: kc.s2d_conv_of(x, k_of, gc, L, decim, 4, bf16=bf16),
+        report(f"K1-of fold 4 {tag}{' (tensor cores)' if bf16 else ''}",
+               f"k1of_{tag}",
+               lambda: kc.s2d_conv_of(x, k_of, gc, L, decim, 4, bf16=bf16,
+                                      tc=tc_of),
                lambda: kc.s2d_conv_of_plain(x, k_of, gc, L, decim, 4,
                                             bf16=bf16),
-               "plain stride-4 F.conv1d + un-fold")
+               "plain stride-4 F.conv1d + un-fold",
+               _conv_work(x, k_of, 4, decim),
+               PEAK_BF16 if bf16 else PEAK_F32,
+               _library_conv(x, k_of, gc, L, decim, 4,
+                             torch.bfloat16 if bf16 else torch.float32))
     report("K1-of fold 4 bf16", "k1of_vs_k1",
-           lambda: kc.s2d_conv_of(x, k_of, gc, L, decim, 4, bf16=True),
-           lambda: kc.s2d_conv(x, k2, gc, L, decim, bf16=True), "K1 bf16")
+           lambda: kc.s2d_conv_of(x, k_of, gc, L, decim, 4, bf16=True,
+                                  tc=tc_of),
+           lambda: kc.s2d_conv(x, k2, gc, L, decim, bf16=True, tc=tc),
+           "K1 bf16",
+           _conv_work(x, k_of, 4, decim), PEAK_BF16)
+
+    # another rate: 16 carriers at 8 MS/s (2D = 66, K = 5082), where the
+    # weights stream through shared memory and the A loads are 4 bytes
+    x8, k8, gc8, L8, d8 = _case(16, BENCH_N, 2, device, 8.0)
+    tc8 = kc.tc_pack_k1(k8)
+    report(f"K1 bf16 (tensor cores) at 8 MS/s, 16 carriers (2D = 66, "
+           f"{tc8.kchunk} of {tc8.packed.shape[1]} k-steps of weights "
+           "resident)", "k1_bf16_8msps",
+           lambda: kc.s2d_conv(x8, k8, gc8, L8, d8, bf16=True, tc=tc8),
+           lambda: kc.s2d_conv_plain(x8, k8, gc8, L8, d8, bf16=True),
+           "plain F.conv1d", _conv_work(x8, k8, 1, d8), PEAK_BF16,
+           _library_conv(x8, k8, gc8, L8, d8, 1, torch.bfloat16), iters=6)
+    del x8, k8, tc8
 
     mc = MulticarrierFrontend.from_offsets(carrier_grid(16), device=device,
                                            num_candidates=64, threshold=0.80,
@@ -613,20 +824,27 @@ def phase_timing(device, card: str) -> dict:
             device=device, num_candidates=64, threshold=0.80, conv=conv)
         x = _case(16, BENCH_N, 4, device)[0]
         kp, lp = pfb.kernel_s2d, pfb.L
+        work = _conv_work(x, kp, 1, decim)
         if conv == "pallas_bf16":
-            report("full band (C2=192, gc=0): K1 bf16", "pfb_k1_bf16",
-                   lambda: kc.s2d_conv(x, kp, 0, lp, decim, bf16=True),
+            report("full band (C2=192, gc=0): K1 bf16 (tensor cores)",
+                   "pfb_k1_bf16",
+                   lambda: kc.s2d_conv(x, kp, 0, lp, decim, bf16=True,
+                                       tc=pfb.tc),
                    lambda: kc.s2d_conv_plain(x, kp, 0, lp, decim, bf16=True),
-                   "plain F.conv1d", rows=192, iters=6)
+                   "plain F.conv1d", work, PEAK_BF16,
+                   _library_conv(x, kp, 0, lp, decim, 1, torch.bfloat16),
+                   iters=6)
         else:
             report("full band (C2=192, gc=0): K3 f32", "pfb_k3",
                    lambda: kc.s2d_conv_db(x, kp, 0, lp, decim),
                    lambda: kc.s2d_conv_plain(x, kp, 0, lp, decim),
-                   "plain F.conv1d", rows=192, iters=6)
+                   "plain F.conv1d", work, PEAK_F32,
+                   _library_conv(x, kp, 0, lp, decim, 1, torch.float32),
+                   iters=6)
             report("full band (C2=192, gc=0): K3 f32", "pfb_k3_vs_k1",
                    lambda: kc.s2d_conv_db(x, kp, 0, lp, decim),
                    lambda: kc.s2d_conv(x, kp, 0, lp, decim),
-                   "K1 f32", rows=192, iters=6)
+                   "K1 f32", work, PEAK_F32, iters=6)
         t[f"pfb_{conv}"] = _frontend_timing(
             f"full-band frontend {conv}, 96 channels", pfb, x, card,
             iters=6)
@@ -639,24 +857,34 @@ def phase_timing(device, card: str) -> dict:
 
 def phase_timing_k4(device, card: str, t: dict) -> None:
     """K4 against its plain version and against K1 at C2 = 32."""
+    import torch
     from tetraear_tpu_torch.ops.kernels import s2d_conv as kc
     x, k2, gc, L, decim = _case(16, BENCH_N, 2, device)
+    tc = kc.tc_pack_k1(k2)
     for bf16 in (False, True):
         tag = "bf16" if bf16 else "f32"
         for key, other, name in (
                 ("plain", lambda: kc.s2d_conv_plain(x, k2, gc, L, decim,
                                                     bf16=bf16),
                  "plain F.conv1d"),
-                ("k1", lambda: kc.s2d_conv(x, k2, gc, L, decim, bf16=bf16),
+                ("k1", lambda: kc.s2d_conv(x, k2, gc, L, decim, bf16=bf16,
+                                           tc=tc),
                  f"K1 {tag}")):
             ms, other_ms, runs = _pair_ms(
                 lambda: kc.s2d_conv_dt(x, k2, gc, L, decim, bf16=bf16),
                 other, 10)
-            t.setdefault(f"k4_{tag}", ms)
-            t[f"k4_{tag}_{key}"] = other_ms
+            t.setdefault(f"k4_{tag}", {"ms": ms})
+            t[f"k4_{tag}"][f"{key}_ms"] = other_ms
             print(f"[timing] {card}: K4 {'dt_bf16' if bf16 else 'dt'} "
-                  f"{runs[0]:.3f} / {runs[1]:.3f} ms, {name} {runs[2]:.3f} / "
-                  f"{runs[3]:.3f} ms")
+                  f"{runs[0]:.4f} / {runs[1]:.4f} ms, {name} {runs[2]:.4f} / "
+                  f"{runs[3]:.4f} ms")
+    # K4 dt computes K1 f32's function: the same bound and library call
+    k4 = t["k4_f32"]
+    k4["bound_ms"], k4["bound_by"] = _bound(*_conv_work(x, k2, 1, decim),
+                                            PEAK_F32)
+    k4["library_ms"] = t["k1_f32"]["library_ms"]
+    print(f"[timing] {card}: K4 dt bound {k4['bound_ms']:.4f} ms = "
+          f"{k4['bound_ms'] / k4['ms']:.1%} of it")
 
 
 def _peak_mib(fn) -> float:
@@ -701,7 +929,18 @@ def phase_timing_staged(device, card: str, t: dict) -> None:
     args = (mc.offsets_hz, mc.sample_rate_hz, mc.decim, mc.taps_d)
     ms, plain_ms, runs = _pair_ms(lambda: k5.fused_channelize(x, *args),
                                   lambda: k5.fused_channelize_plain(x, *args))
-    t["k5"], t["k5_plain"] = ms, plain_ms
+    # per input sample and carrier one complex rotation (6 FLOP; the
+    # sincosf is not counted), per output and tap one complex-by-real
+    # multiply-add (4 FLOP); x read once, the complex64 output written once
+    carriers, taps = mc.offsets_hz.shape[0], mc.taps_d.shape[0]
+    m_out = -(-BENCH_N // mc.decim)
+    bound_ms, by = _bound(
+        6.0 * carriers * BENCH_N + 4.0 * carriers * m_out * taps,
+        8.0 * BENCH_N + 8.0 * carriers * m_out, PEAK_F32)
+    t["k5"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": by, "library_ms": None}
+    print(f"[timing] {card}: K5 bound {bound_ms:.4f} ms ({by}) = "
+          f"{bound_ms / ms:.1%} of it")
     peak = _peak_mib(lambda: k5.fused_channelize(x, *args))
     plain_peak = _peak_mib(lambda: k5.fused_channelize_plain(x, *args))
     print(f"[timing] {card}: K5 16 carriers L={len(mc.taps_d)} "
@@ -719,7 +958,7 @@ def phase_timing_staged(device, card: str, t: dict) -> None:
     fast_ms = _time_ms(lambda: k5.fused_channelize(x, low, *args[1:]))
     print(f"[timing] {card}: K5 with every phase on sincosf's fast path "
           f"{fast_ms:.3f} ms (the bench carriers' {ms:.3f} ms)")
-    t["k5_fast_path"] = fast_ms
+    t["k5"]["fast_path_ms"] = fast_ms
     y = k5.fused_channelize(x, *args)
     yc = fir_filter_same(y, mc.taps_c)
     bits, corr, count = _demod_front(yc, mc.sps)
@@ -989,11 +1228,10 @@ def main() -> int:
     print(f"[timing] phases: build {t1 - t0:.1f} s, kernel {t2 - t1:.1f} s, "
           f"decode {t3 - t2:.1f} s, single {t4 - t3:.1f} s, timing "
           f"{t5 - t4:.1f} s, single timing {time.perf_counter() - t5:.1f} s")
-    times = {"s2d_conv": ("k1_bf16", "k1_bf16_plain"),
-             "s2d_conv_of": ("k1of_bf16", "k1of_bf16_plain"),
-             "s2d_conv_db": ("k3", "k3_plain"),
-             "s2d_conv_dt": ("k4_f32", "k4_f32_plain"),
-             "fused_channelize": ("k5", "k5_plain")}
+    times = {"s2d_conv": "k1_f32", "s2d_conv_bf16": "k1_bf16",
+             "s2d_conv_of": "k1of_f32", "s2d_conv_of_bf16": "k1of_bf16",
+             "s2d_conv_db": "k3", "s2d_conv_dt": "k4_f32",
+             "fused_channelize": "k5"}
     print(card)
     print(json.dumps({"kernels": [{
         "name": name,
@@ -1002,8 +1240,11 @@ def main() -> int:
         "replaces": replaces,
         "launches": launches[name],
         "max_abs_err": errs[name],
-        "ms": t[times[name][0]],
-        "plain_ms": t[times[name][1]],
+        "ms": t[times[name]]["ms"],
+        "plain_ms": t[times[name]]["plain_ms"],
+        "bound_ms": t[times[name]]["bound_ms"],
+        "bound_by": t[times[name]]["bound_by"],
+        "library_ms": t[times[name]]["library_ms"],
     } for name, (source, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

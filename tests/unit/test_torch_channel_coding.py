@@ -241,7 +241,9 @@ def _same_frames(got, want):
         np.testing.assert_array_equal(g.mac_bits, w.mac_bits)
         assert (g.mac_pdu is None) == (w.mac_pdu is None)
         if g.mac_pdu is not None:
-            assert g.mac_pdu.pdu_type == w.mac_pdu.pdu_type
+            # the port's PDUType is its own copy of the reference's enum
+            assert g.mac_pdu.pdu_type.name == w.mac_pdu.pdu_type.name
+            assert g.mac_pdu.pdu_type.value == w.mac_pdu.pdu_type.value
             assert bytes(g.mac_pdu.data) == bytes(w.mac_pdu.data)
 
 

@@ -235,16 +235,17 @@ def _run(code):
 
 
 def test_jax_package_loads_after_the_port():
-    """The port's jax-free stand-in for tetraear_tpu.ops.crc hands over to
-    the real module when a JAX-package module asks for a device function."""
+    """The port imports no jax and plants nothing under the JAX package's
+    module names: the JAX package loads its own ops.crc, device functions
+    included, after the port's decoders are built."""
     _run("import sys\n"
          "from tetraear_tpu_torch.models.multicarrier import "
          "MulticarrierDecoder\n"
-         "MulticarrierDecoder(1)\n"
+         "MulticarrierDecoder(1, device='cpu')\n"
          "from tetraear_tpu_torch.core.decoder import TetraDecoder\n"
          "from tetraear_tpu_torch.models.etsi_link import "
          "EtsiLinkReceiver\n"
-         "TetraDecoder(), EtsiLinkReceiver(device='cpu')\n"
+         "TetraDecoder(device='cpu'), EtsiLinkReceiver(device='cpu')\n"
          "assert 'jax' not in sys.modules\n"
          "from tetraear_tpu.models.multicarrier import MulticarrierFrontend\n"
          "crc = sys.modules['tetraear_tpu.ops.crc']\n"
@@ -264,7 +265,7 @@ def test_port_never_imports_jax():
         "from tetraear_tpu_torch.models.multicarrier import "
         "MulticarrierDecoder\n"
         "from tetraear_tpu_torch.utils.synth import planted_wideband\n"
-        "MulticarrierDecoder(2)\n"
+        "MulticarrierDecoder(2, device='cpu')\n"
         "planted_wideband([3], num_frames=1)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('jaxlib')]\n"

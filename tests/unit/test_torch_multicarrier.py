@@ -135,7 +135,7 @@ class TestFrontendParity:
         got = _port(WIDEBAND_OFFSETS, conv)(wideband)
         want = jax_wideband[conv]
         _assert_same_valid_candidates(_np(got), want)
-        port_frames = tmc.MulticarrierDecoder(3).decode(got)
+        port_frames = tmc.MulticarrierDecoder(3, device="cpu").decode(got)
         jax_frames = jmc.MulticarrierDecoder(3).decode(
             jmc.MulticarrierResult(*want))
         for c in range(3):
@@ -210,13 +210,16 @@ class TestFrontendModule:
 
 @pytest.mark.cuda
 def test_pallas_bf16_on_card_decodes_planted(cuda_device, wideband):
-    """K1 on the card: every planted text on its carrier, K1 launched, and
-    the planted carriers' valid candidates equal the CPU f32 path's."""
-    _card_decodes_planted("pallas_bf16", "s2d_conv", cuda_device, wideband)
+    """K1 on the card: every planted text on its carrier, K1's tensor-core
+    route launched, and the planted carriers' valid candidates equal the
+    CPU f32 path's."""
+    _card_decodes_planted("pallas_bf16", "s2d_conv_bf16", cuda_device,
+                          wideband)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("conv,wrapper", [("pallas_of4_bf16", "s2d_conv_of"),
+@pytest.mark.parametrize("conv,wrapper", [("pallas_of4_bf16",
+                                           "s2d_conv_of_bf16"),
                                           ("pallas_db", "s2d_conv_db")])
 def test_k1_of_and_k3_on_card_decode_planted(cuda_device, wideband, conv,
                                              wrapper):
@@ -228,7 +231,7 @@ def _card_decodes_planted(conv, wrapper, cuda_device, wideband):
     before = k1.LAUNCHES[wrapper]
     got = _port(WIDEBAND_OFFSETS, conv, device=cuda_device)(wideband)
     assert k1.LAUNCHES[wrapper] == before + 1
-    frames = tmc.MulticarrierDecoder(3).decode(got)
+    frames = tmc.MulticarrierDecoder(3, device=cuda_device).decode(got)
     for c in range(3):
         assert f"[TXT] CARRIER {c + 1} MSG" in {
             f.get("sds_message") for f in frames[c]}

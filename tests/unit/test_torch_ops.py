@@ -295,14 +295,16 @@ class TestS2dConv:
     def test_k1_matches_plain_on_card(self, cuda_device, num_carriers, n,
                                       bf16):
         """K1 vs the plain version on the card, TF32 off: f32 sum-order
-        tolerance (the bf16 operands are rounded identically)."""
+        tolerance (the bf16 operands are rounded identically; bf16 runs
+        the tensor-core route, counted as s2d_conv_bf16)."""
         kernel, gc, _ = _kernel(num_carriers)
         k2 = torch.as_tensor(tfused.s2d_kernel(kernel, D), device=cuda_device)
         x = torch.as_tensor(_noise(n, 7), device=cuda_device)
-        before = k1.LAUNCHES["s2d_conv"]
+        name = "s2d_conv_bf16" if bf16 else "s2d_conv"
+        before = k1.LAUNCHES[name]
         got = k1.s2d_conv(x, k2, gc, kernel.shape[-1], D, bf16=bf16)
         torch.cuda.synchronize()
-        assert k1.LAUNCHES["s2d_conv"] == before + 1
+        assert k1.LAUNCHES[name] == before + 1
         want = k1.s2d_conv_plain(x, k2, gc, kernel.shape[-1], D, bf16=bf16)
         assert got.shape == want.shape
         assert ((got - want).abs().max()
@@ -360,16 +362,18 @@ class TestS2dConv:
     @pytest.mark.parametrize("fold", [1, 4, 6])
     def test_k1_of_matches_plain_on_card(self, cuda_device, fold, bf16):
         """K1-of vs the folded plain version: f32 sum-order tolerance
-        (bf16 operands rounded identically on both sides)."""
+        (bf16 operands rounded identically on both sides; bf16 runs the
+        tensor-core route, counted as s2d_conv_of_bf16)."""
         kernel, gc, _ = _kernel(16)
         L = kernel.shape[-1]
         k_of = torch.as_tensor(tfused.s2d_of_kernel(kernel, D, fold),
                                device=cuda_device)
         x = torch.as_tensor(_noise(100_007, 9), device=cuda_device)
+        name = "s2d_conv_of_bf16" if bf16 else "s2d_conv_of"
         before = dict(k1.LAUNCHES)
         got = k1.s2d_conv_of(x, k_of, gc, L, D, fold, bf16=bf16)
         torch.cuda.synchronize()
-        assert k1.LAUNCHES["s2d_conv_of"] == before["s2d_conv_of"] + 1
+        assert k1.LAUNCHES[name] == before[name] + 1
         want = k1.s2d_conv_of_plain(x, k_of, gc, L, D, fold, bf16=bf16)
         assert got.shape == want.shape == (32, 10_001)
         assert ((got - want).abs().max()

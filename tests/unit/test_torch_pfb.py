@@ -116,7 +116,7 @@ class TestPfbFrontendParity:
         channel, and per channel the same texts as the JAX pallas_bf16."""
         x, want = planted
         assert set(want) == {94, 0, 3}
-        got = tmc.MulticarrierDecoder(96).decode(_port("pallas_bf16")(x))
+        got = tmc.MulticarrierDecoder(96, device="cpu").decode(_port("pallas_bf16")(x))
         ref = jmc.MulticarrierDecoder(96).decode(
             jmc.PfbMulticarrierFrontend(fused="pallas_bf16")(x))
         assert _texts(got) == _texts(ref)
@@ -160,7 +160,7 @@ def test_pallas_db_on_card_decodes_planted(cuda_device, planted):
     before = k1.LAUNCHES["s2d_conv_db"]
     got = _port("pallas_db", device=cuda_device)(x)
     assert k1.LAUNCHES["s2d_conv_db"] == before + 1
-    texts = _texts(tmc.MulticarrierDecoder(96).decode(got))
+    texts = _texts(tmc.MulticarrierDecoder(96, device="cpu").decode(got))
     for c, text in want.items():
         assert text in texts[c], (c, text)
     got, cpu = _np(got), _np(_port("s2d")(x))

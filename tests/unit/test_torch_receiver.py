@@ -229,23 +229,23 @@ class TestTetraDecoder:
         x, text = _noisy("ref-exact", seed=7)
         hard = trx.SignalProcessor(config=ReceiverConfig(profile="ref-exact"),
                                    device="cpu").process(x)
-        got = TetraDecoder(auto_decrypt=False).decode(hard)
+        got = TetraDecoder(auto_decrypt=False, device="cpu").decode(hard)
         want = JaxDecoder(auto_decrypt=False).decode(hard)
         assert [f.get("sds_message") for f in got] == [
             f.get("sds_message") for f in want]
         assert text in [f.get("sds_message") for f in got]
         assert [f["position"] for f in got] == [f["position"] for f in want]
-        bits, _ = TetraDecoder().symbols_to_bits(hard)
+        bits, _ = TetraDecoder(device="cpu").symbols_to_bits(hard)
         for th in (0.9, 0.6):
-            assert (TetraDecoder().find_sync(bits, th, True)
+            assert (TetraDecoder(device="cpu").find_sync(bits, th, True)
                     == JaxDecoder().find_sync(bits, th, True))
-        assert TetraDecoder().decode(hard[:10]) == []
-        assert TetraDecoder().find_sync(bits[:10], 0.9, True) == ([], 0.0)
+        assert TetraDecoder(device="cpu").decode(hard[:10]) == []
+        assert TetraDecoder(device="cpu").find_sync(bits[:10], 0.9, True) == ([], 0.0)
 
     def test_dense_scores_equal_the_references(self):
         r = np.random.default_rng(8)
         bits = r.integers(0, 2, 3000).astype(np.uint8)
-        ts1, ts2 = TetraDecoder().dense_sync(bits)
+        ts1, ts2 = TetraDecoder(device="cpu").dense_sync(bits)
         from tetraear_tpu.core.decoder import _dense_sync_correlation
         w1, w2 = _dense_sync_correlation(bits)
         np.testing.assert_array_equal(ts1, w1)
@@ -265,7 +265,7 @@ class TestTetraDecoder:
             "x, text = planted_single('ref-exact')\n"
             "sp = SignalProcessor(config=ReceiverConfig(profile='ref-exact'),"
             " device='cpu')\n"
-            "dec = TetraDecoder()\n"
+            "dec = TetraDecoder(device='cpu')\n"
             "frames = dec.decode(sp.process(x))\n"
             "assert text in [f.get('sds_message') for f in frames], frames\n"
             "bits = dec.symbols_to_bits(sp.process(x))[0]\n"

@@ -1,5 +1,6 @@
-// K1 and K1-of on Hopper: the composite space-to-depth ("s2d") conv of
-// the multicarrier front end, un-folded and output-folded.
+// K1 and K1-of on Hopper, f32 operands: the composite space-to-depth
+// ("s2d") conv of the multicarrier front end, un-folded and
+// output-folded.
 //
 // K1 replaces tetraear_tpu/ops/pallas/s2d_conv.py:_kernel as launched by
 // _run (entry point pallas_s2d_conv_wk).  It computes
@@ -35,11 +36,8 @@
 // group of 32 rows (grid.y walks the row groups, so the PFB's C2 = 192
 // and K1-of's C2 * F rows run the same way as 32).
 //
-// The bf16 variant rounds both operands to bf16 (round to nearest even)
-// as it stages them and multiplies and accumulates in f32: bf16 operands
-// with f32 accumulation, as the Pallas bf16 variant.  The FMAs run on
-// the CUDA cores; bf16 tensor cores (mma / wgmma), TMA and a pipelined
-// stage ring are the next steps.
+// The bf16 variants ("bf16", "of<N>_bf16") run on the tensor cores in
+// s2d_conv_tc.cu; this source is the f32 route.
 //
 // C interface (ctypes): tetra_s2d_conv launches on the given stream and
 // returns cudaGetLastError() (0 on success); it allocates nothing.
@@ -50,7 +48,6 @@ namespace {
 
 using namespace s2d;
 
-template <bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 s2d_conv_kernel(const float* __restrict__ xf, long long n_floats,
                 const float* __restrict__ k_taps, float* __restrict__ out,
@@ -61,14 +58,13 @@ s2d_conv_kernel(const float* __restrict__ xf, long long n_floats,
   float* w_sh = smem + w_off;   // [tps * ich][kRows]
   const long long w0 = static_cast<long long>(blockIdx.x) * kTileW;
   const int row0 = blockIdx.y * kRows;
-  load_window<kBf16>(xf, n_floats, w0 * ich - pad_floats, kTileW + lp - 1,
+  load_window<false>(xf, n_floats, w0 * ich - pad_floats, kTileW + lp - 1,
                      ich, xs, x_sh);
   Acc acc;
-  conv_tile<kBf16>(x_sh, w_sh, k_taps, c2, ich, lp, xs, tps, row0, acc);
+  conv_tile<false>(x_sh, w_sh, k_taps, c2, ich, lp, xs, tps, row0, acc);
   store_tile(acc, out, c2, w0, row0, fold, m_out);
 }
 
-template <bool kBf16>
 cudaError_t launch(const float* xf, long long n_floats, const float* k_taps,
                    float* out, int c2, int ich, int lp, long long pad_floats,
                    long long m_out, int fold, cudaStream_t stream) {
@@ -79,13 +75,13 @@ cudaError_t launch(const float* xf, long long n_floats, const float* k_taps,
   const size_t smem =
       sizeof(float) * (static_cast<size_t>(w_off) + tps * ich * kRows);
   cudaError_t err = cudaFuncSetAttribute(
-      s2d_conv_kernel<kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      s2d_conv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const long long m_pos = (m_out + fold - 1) / fold;   // folded positions
   const dim3 grid(static_cast<unsigned>((m_pos + kTileW - 1) / kTileW),
                   static_cast<unsigned>((c2 + kRows - 1) / kRows));
-  s2d_conv_kernel<kBf16><<<grid, kThreads, smem, stream>>>(
+  s2d_conv_kernel<<<grid, kThreads, smem, stream>>>(
       xf, n_floats, k_taps, out, c2, ich, lp, pad_floats, m_out, fold, xs,
       w_off, tps);
   return cudaGetLastError();
@@ -99,13 +95,8 @@ cudaError_t launch(const float* xf, long long n_floats, const float* k_taps,
 extern "C" int tetra_s2d_conv(const float* xf, long long n_floats,
                               const float* k_taps, float* out, int c2,
                               int ich, int lp, long long pad_floats,
-                              long long m_out, int fold, int bf16,
-                              void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      bf16 ? launch<true>(xf, n_floats, k_taps, out, c2, ich, lp, pad_floats,
-                          m_out, fold, s)
-           : launch<false>(xf, n_floats, k_taps, out, c2, ich, lp,
-                           pad_floats, m_out, fold, s);
-  return static_cast<int>(err);
+                              long long m_out, int fold, void* stream) {
+  return static_cast<int>(launch(xf, n_floats, k_taps, out, c2, ich, lp,
+                                 pad_floats, m_out, fold,
+                                 static_cast<cudaStream_t>(stream)));
 }

@@ -11,7 +11,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tetraear_tpu import constants as C
+from tetraear_tpu_torch import constants as C
 from tetraear_tpu_torch.ops.crc import crc_tables, soft_crc_check_batch
 
 _SEG = 128   # segment of the hierarchical top-K

@@ -7,7 +7,7 @@ transmit-side burst building and sync-driven receive down to MAC bits.
 Receive: the etsi receiver's dense TS1/TS2 scores locate the bursts (a
 greedy walk on the host); the soft bits after each hit go through the
 channel decode on the receiver's device, and CRC-valid MAC bits through
-the reference's protocol parser.
+the port's copy of the reference's protocol parser.
 """
 
 from __future__ import annotations
@@ -17,11 +17,12 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from tetraear_tpu import constants as C
-from tetraear_tpu.config import ReceiverConfig
-from tetraear_tpu_torch.hostref import protocol_parser_class, synth
+from tetraear_tpu_torch import constants as C
+from tetraear_tpu_torch.config import ReceiverConfig
 from tetraear_tpu_torch.models.receiver_etsi import EtsiReceiver
 from tetraear_tpu_torch.ops import channel_coding as cc
+from tetraear_tpu_torch.protocol.parser import TetraProtocolParser
+from tetraear_tpu_torch.utils import synth
 
 SYNC_SYMBOLS = C.SYNC_LEN_BITS // 2          # 11
 
@@ -46,16 +47,15 @@ def transmit(mac_frames: List[np.ndarray], channel: str = "SCH/F",
              symbol_rate: float = C.SYMBOL_RATE_HZ,
              snr_db: float | None = None, seed: int = 0) -> np.ndarray:
     """MAC bit blocks -> pi/4-DQPSK IQ at the capture rate (host numpy)."""
-    sy = synth()
     rng = np.random.default_rng(seed)
     pieces = [rng.integers(0, 2, 2 * gap_symbols).astype(np.uint8)]
     for mac in mac_frames:
         pieces.append(build_burst_bits(mac, channel, ecc30))
         pieces.append(rng.integers(0, 2, 2 * gap_symbols).astype(np.uint8))
     bits = np.concatenate(pieces)
-    phasors = sy.synthesize_symbol_phasors(sy.bits_to_symbols(bits),
-                                           mapping="pi4")
-    x = sy.upsample_hold(phasors, sample_rate, symbol_rate)
+    phasors = synth.synthesize_symbol_phasors(synth.bits_to_symbols(bits),
+                                              mapping="pi4")
+    x = synth.upsample_hold(phasors, sample_rate, symbol_rate)
     if snr_db is not None:
         std = 10 ** (-snr_db / 20) / np.sqrt(2)
         x = x + std * (rng.standard_normal(len(x))
@@ -74,7 +74,7 @@ class EtsiLinkReceiver:
         self.rx = EtsiReceiver(config, device=device)
         self.channel = channel
         self.ecc30 = ecc30
-        self.parser = protocol_parser_class()()
+        self.parser = TetraProtocolParser()
         _, self.air_bits = cc.CHANNEL_GEOMETRY[channel]
 
     def receive(self, iq, freq_offset: float = 0.0) -> List[EtsiFrame]:

@@ -31,7 +31,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tetraear_tpu.config import ReceiverConfig
+from tetraear_tpu_torch.config import ReceiverConfig
+from tetraear_tpu_torch.core.decoder import TetraDecoder
 from tetraear_tpu_torch.models.candidates import (  # noqa: F401
     CandidateStage, MulticarrierResult, candidate_stage, extract_candidates)
 from tetraear_tpu_torch.models.realpair import (
@@ -41,7 +42,7 @@ from tetraear_tpu_torch.ops.channelizer import channelize
 from tetraear_tpu_torch.ops.fir import fir_filter_same
 from tetraear_tpu_torch.ops.kernels.s2d_conv import (
     check_fold, parse_fold, s2d_conv, s2d_conv_db, s2d_conv_of,
-    s2d_conv_of_plain, s2d_conv_plain)
+    s2d_conv_of_plain, s2d_conv_plain, tc_pack, tc_pack_k1)
 from tetraear_tpu_torch.ops.timing import best_phase_pick
 
 
@@ -73,15 +74,17 @@ CONV_VARIANTS = {
                           "f32", cli=True, pfb=False, ddc=True),
     "pallas": ConvVariant("K1 (csrc/s2d_conv.cu), f32 operands",
                           cli=True, pfb=True, ddc=True),
-    "pallas_bf16": ConvVariant("K1 (csrc/s2d_conv.cu), bf16 operands, f32 "
-                               "accumulation", cli=True, pfb=True, ddc=True),
+    "pallas_bf16": ConvVariant("K1 (csrc/s2d_conv_tc.cu), bf16 operands on "
+                               "the tensor cores, f32 accumulation",
+                               cli=True, pfb=True, ddc=True),
     "pallas_db": ConvVariant("K3 (csrc/s2d_conv_db.cu): K1 with the next "
                              "tile's input prefetched by cp.async, f32",
                              cli=False, pfb=True, ddc=True),
     "pallas_of<N>": ConvVariant("K1-of (csrc/s2d_conv.cu, fold N), f32 "
                                 "operands", cli=False, pfb=False, ddc=True),
-    "pallas_of<N>_bf16": ConvVariant("K1-of (csrc/s2d_conv.cu, fold N), "
-                                     "bf16 operands, f32 accumulation",
+    "pallas_of<N>_bf16": ConvVariant("K1-of (csrc/s2d_conv_tc.cu, fold N), "
+                                     "bf16 operands on the tensor cores, "
+                                     "f32 accumulation",
                                      cli=False, pfb=False, ddc=True),
 }
 PFB_CONV_VARIANTS = tuple(k for k, v in CONV_VARIANTS.items() if v.pfb)
@@ -190,6 +193,12 @@ class MulticarrierFrontend(CandidateStage):
         if conv == "fused":
             self.register_buffer("kernel", torch.as_tensor(
                 state.kernel, dtype=torch.float32, device=device))
+        # the tensor-core route's packed weights, made once (on a card)
+        self.tc = None
+        if self.bf16 and device.type == "cuda":
+            self.tc = (tc_pack(self.kernel_of, self.fold) if self.fold
+                       else tc_pack_k1(self.kernel_s2d))
+            self.register_buffer("kernel_tc", self.tc.packed)
         self.register_buffer("z_cos", torch.as_tensor(state.z_cos,
                                                       device=device))
         self.register_buffer("z_sin", torch.as_tensor(state.z_sin,
@@ -232,11 +241,14 @@ class MulticarrierFrontend(CandidateStage):
             out = s2d_conv_of_plain(x, self.kernel_of, *args, self.fold)
         elif self.conv == "pallas_db":
             out = s2d_conv_db(x, self.kernel_s2d, *args)
-        elif self.fold:
-            out = s2d_conv_of(x, self.kernel_of, *args, self.fold,
-                              bf16=self.bf16)
         else:
-            out = s2d_conv(x, self.kernel_s2d, *args, bf16=self.bf16)
+            tc = self.tc and self.tc._replace(packed=self.kernel_tc)
+            if self.fold:
+                out = s2d_conv_of(x, self.kernel_of, *args, self.fold,
+                                  bf16=self.bf16, tc=tc)
+            else:
+                out = s2d_conv(x, self.kernel_s2d, *args, bf16=self.bf16,
+                               tc=tc)
         c = out.shape[0] // 2
         return out[:c], out[c:]
 
@@ -412,12 +424,13 @@ def build_frontend(conv: str, *, device, pfb: bool = False,
 
 class MulticarrierDecoder:
     """Host decode over MulticarrierResult: one stateful TetraDecoder per
-    carrier, fed from the device bit streams and dense sync scores."""
+    carrier, fed from the device bit streams and dense sync scores; the
+    decoders take `device` (the frontend's) for their own sync scores."""
 
-    def __init__(self, num_carriers: int, auto_decrypt: bool = False):
-        from tetraear_tpu_torch.hostref import tetra_decoder_class
-        decoder_cls = tetra_decoder_class()
-        self.decoders = [decoder_cls(auto_decrypt=auto_decrypt)
+    def __init__(self, num_carriers: int, auto_decrypt: bool = False, *,
+                 device):
+        self.decoders = [TetraDecoder(auto_decrypt=auto_decrypt,
+                                      device=device)
                          for _ in range(num_carriers)]
 
     def decode(self, result: MulticarrierResult) -> list:

@@ -21,7 +21,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tetraear_tpu.config import ReceiverConfig
+from tetraear_tpu_torch.config import ReceiverConfig
 from tetraear_tpu_torch.models.candidates import (CandidateStage,
                                                   candidate_stage)
 from tetraear_tpu_torch.ops import dqpsk, fir, pfb, sync

@@ -22,8 +22,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from tetraear_tpu import constants as C
-from tetraear_tpu.config import ReceiverConfig
+from tetraear_tpu_torch import constants as C
+from tetraear_tpu_torch.config import ReceiverConfig
 from tetraear_tpu_torch.ops import ddc, dqpsk, fir, iir, sync, timing
 
 

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from tetraear_tpu.config import ReceiverConfig
+from tetraear_tpu_torch.config import ReceiverConfig
 from tetraear_tpu_torch.models.receiver import as_iq
 from tetraear_tpu_torch.ops import ddc, dqpsk, fir, resample, sync, timing
 

@@ -8,9 +8,9 @@ a 16 x M binary matrix.  `_crc_matrix` builds (A, c0) with numpy;
 holds 0 and 1 exactly while the sum accumulates in f32.
 
 The host oracles `crc16_bits`, `crc16_bits_arr` and `soft_crc_check_host`
-(numpy) are what the reference's host protocol code imports from
-`tetraear_tpu.ops.crc`; `tetraear_tpu_torch.hostref` serves them under
-that name so the host decoder runs without jax.
+(numpy) serve the host protocol code (protocol/parser.py, utils/synth.py).
+`soft_crc_check_host` takes the native engine (utils/native_dsp) when it
+is built, as the reference's does; its verdicts are the numpy oracle's.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import functools
 import numpy as np
 import torch
 
-from tetraear_tpu import constants as C
+from tetraear_tpu_torch import constants as C
 
 
 def crc16_bits(bits) -> int:
@@ -67,9 +67,19 @@ def _crc_matrix(m: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 def soft_crc_check_host(data_bits) -> bool:
-    """The reference's soft acceptance for one frame (numpy): not all-0 or
-    all-1, and at most CRC_SOFT_ERROR_BUDGET bit errors on the forward or
-    the reversed-payload CRC."""
+    """The reference's soft acceptance for one frame: not all-0 or all-1,
+    and at most CRC_SOFT_ERROR_BUDGET bit errors on the forward or the
+    reversed-payload CRC.  The native engine where it is built, else the
+    numpy oracle `soft_crc_check_numpy`."""
+    from tetraear_tpu_torch.utils import native_dsp
+    verdict = native_dsp.soft_crc_check(data_bits, C.CRC_SOFT_ERROR_BUDGET)
+    if verdict is not None:
+        return verdict
+    return soft_crc_check_numpy(data_bits)
+
+
+def soft_crc_check_numpy(data_bits) -> bool:
+    """soft_crc_check_host on the GF(2) CRC matrix, in numpy."""
     bits = np.asarray(data_bits).astype(np.uint8) & 1
     if bits.size < 16:
         return False

@@ -31,7 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 
 KERNEL_MODULES = ("s2d_conv", "fused_channelize")
-SOURCES = ("s2d_conv", "s2d_conv_db", "s2d_conv_dt", "fused_channelize")
+SOURCES = ("s2d_conv", "s2d_conv_tc", "s2d_conv_db", "s2d_conv_dt",
+           "fused_channelize")
 
 
 def _counters() -> list:

@@ -9,7 +9,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tetraear_tpu import constants as C
+from tetraear_tpu_torch import constants as C
 
 _PATTERNS = np.stack([C.TS1, C.TS2]).astype(np.float32) * 2.0 - 1.0  # (2, 22)
 

@@ -30,9 +30,7 @@ from pathlib import Path
 
 import torch
 
-# the reference CLI's profile and key-file helpers (its module imports
-# only the standard library at its top, so no jax)
-from tetraear_tpu.ui.cli import _load_keys, _receiver_config
+from tetraear_tpu_torch.config import ReceiverConfig
 from tetraear_tpu_torch.models.multicarrier import CONV_VARIANTS
 
 # the reference CLI's --conv choices that are ported ("s2d_mono" and
@@ -69,12 +67,36 @@ def _out_path(args) -> str:
                               + "_frames.jsonl")
 
 
+def _receiver_config(args):
+    """--profile -> ReceiverConfig (None for ref-compat, the default), as
+    the reference CLI's helper of that name."""
+    profile = getattr(args, "profile", "ref-compat")
+    if profile == "ref-compat":
+        return None
+    return ReceiverConfig(profile=profile,
+                          sample_rate_hz=args.sample_rate * 1e6)
+
+
+def _load_keys(args, decoder) -> None:
+    """--key-file: one hex key per line (`#` comments, an optional
+    `name:` prefix) into decoder.set_keys, as the reference CLI's helper
+    of that name."""
+    if getattr(args, "key_file", None):
+        keys = []
+        for line in Path(args.key_file).read_text().splitlines():
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            keys.append(line.split(":")[-1])
+        decoder.set_keys(keys)
+
+
 def _device_name(dev: torch.device) -> str:
     return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "host"
 
 
 def cmd_decode(args) -> int:
-    from tetraear_tpu.io.replay import FileReplaySource
+    from tetraear_tpu_torch.io.replay import FileReplaySource
 
     for flag, msg in _LATER.items():
         if getattr(args, flag):
@@ -96,7 +118,7 @@ def _decode_single(args, source, dev: torch.device) -> int:
     """The reference's single-carrier loop (tetraear_tpu/ui/cli.py
     cmd_decode) on `dev`."""
     import numpy as np
-    from tetraear_tpu.io.recorder import JsonlFrameRecorder
+    from tetraear_tpu_torch.io.recorder import JsonlFrameRecorder
     from tetraear_tpu_torch.core.decoder import TetraDecoder
     from tetraear_tpu_torch.models.receiver import SignalProcessor
 
@@ -189,7 +211,7 @@ def _decode_single(args, source, dev: torch.device) -> int:
 
 def _decode_multicarrier(args, source, dev: torch.device) -> int:
     import numpy as np
-    from tetraear_tpu.io.recorder import JsonlFrameRecorder
+    from tetraear_tpu_torch.io.recorder import JsonlFrameRecorder
     from tetraear_tpu_torch.models.multicarrier import (
         MulticarrierDecoder, build_frontend)
     from tetraear_tpu_torch.ops.channelizer import carrier_grid
@@ -211,7 +233,8 @@ def _decode_multicarrier(args, source, dev: torch.device) -> int:
                         offsets_hz=carrier_grid(args.carriers))
     if args.pfb:
         args.carriers = mc.num_channels
-    dec = MulticarrierDecoder(args.carriers, auto_decrypt=args.auto_decrypt)
+    dec = MulticarrierDecoder(args.carriers, auto_decrypt=args.auto_decrypt,
+                              device=dev)
     out_path = _out_path(args)
     chunk = args.chunk_size
     frame_count = 0
