@@ -25,12 +25,15 @@ Phases (each prints its results; the first failure exits nonzero):
               start one sample into their storage (off the 16-byte grid of
               its async copies), each bit-equal to K1 f32; K1-of at fold 4
               (f32 and bf16) at the bench shape and folds 6 and 1 at the
-              ragged n; K4 (dt, dt_bf16) at the bench shape and on the
+              ragged n; K4 (dt on the CUDA cores, dt_bf16 on the tensor
+              cores within tc_tol) at the bench shape and on the
               filterbank kernel at the ragged n; K5 against
               mix_to_baseband + fir_decimate at carrier_grid(16), the
-              frontend's 121 taps, the bench n and start 0, and at the
-              ragged n and start 10^7, both also against a float64
-              oracle of the same f32 phases on a sample of outputs
+              frontend's 121 taps (its specialised path), the bench n and
+              start 0, and at the ragged n and starts 10^7 and past 2^24,
+              then the generic path on the staged frontend's taps at
+              8 MS/s, each also against a float64 oracle of the same f32
+              phases on a sample of outputs
   4. decode   the main paths through the entry points a user calls, each
               on a planted signal, every launch count set to 0 just before
               and read just after: `tetraear_tpu_torch.ui.cli.main(
@@ -44,12 +47,15 @@ Phases (each prints its results; the first failure exits nonzero):
               `StagedMulticarrierFrontend` (K5),
               `RealPairFrontend(num_candidates=64)` on the bench's
               grid-aligned offsets, the gather-form `GatherPfbFrontend`
-              and the op-level `pallas_s2d_conv(variant="dt")` (K4) with
-              the real-pair tail, all through `MulticarrierDecoder`.
-              Every planted SDS text must come back on its channel, and
-              each path's kernel must have launched.  Then, uncounted, the
-              16-carrier and full-band `pallas_bf16` and the
-              `pallas_of4_bf16` frontends on the planted signals give the
+              and the op-level `pallas_s2d_conv(variant="dt")` and
+              `variant="dt_bf16"` (K4, both routes) with the real-pair
+              tail, all through `MulticarrierDecoder`.  Every planted SDS
+              text must come back on its channel, and each path's kernel
+              must have launched.  Then, uncounted, the 16-carrier and
+              full-band `pallas_bf16` and the `pallas_of4_bf16` frontends
+              on the planted signals, and the `pallas_bf16` frontends on
+              signals planted at 8 MS/s (16 carriers, K = 5082), 3.2 MS/s
+              (full band) and 20 MS/s (16 carriers, K = 12782), give the
               candidates (positions, frames, CRC verdicts) that the same
               frontend gives with the plain bf16 conv
   5. single   the single-carrier receiver and the etsi link on the card,
@@ -67,14 +73,16 @@ Phases (each prints its results; the first failure exits nonzero):
               card and one PyTorch call of the same function (cuDNN's
               `F.conv1d`, TF32 off for f32; bf16 operands and a bf16
               output for the bf16 routes): K1 f32 and bf16, K3, K1-of
-              (fold 4) and K4 at C2 = 32, (K1 bf16, K3) on the filterbank
-              kernel; the 16-carrier (pallas_bf16) and full-band
-              (pallas_bf16, pallas_db) frontends' stages, end-to-end rate,
-              device busy share (torch.profiler), peak memory and host
-              decode; K5 against the plain mixer + FIR with the peak
-              memory of both, and with every phase on sincosf's fast path;
-              the staged frontend's stages; RealPairFrontend(64) and the
-              gather-form full band end to end; then each single-carrier
+              (fold 4) and K4 (dt, dt_bf16) at C2 = 32, (K1 bf16, K3) on
+              the filterbank kernel; the 16-carrier (pallas_bf16) and
+              full-band (pallas_bf16, pallas_db) frontends' stages,
+              end-to-end rate, device busy share (torch.profiler), peak
+              memory and host decode; K5 against the plain mixer + FIR
+              with the peak memory of both, its FLOP bound beside its
+              oscillator floor, with every phase small, and its generic
+              path at 8 MS/s; the staged frontend's stages;
+              RealPairFrontend(64) and the gather-form full band end to
+              end; then each single-carrier
               profile's block demodulator on one 262,144-sample chunk, its
               busy share, the IIR's two filtfilts alone, the host decoder
               on one chunk and the SCH/F Viterbi decode of 1 and 16 blocks
@@ -122,8 +130,8 @@ refuse_reference()
 BENCH_N = 8_319_936          # bench.py's n per block
 RAGGED_N = 1_000_007
 TOL = 4e-6                   # x max|plain|: f32 sum order only (K5:
-                             # the 121-tap FIR's, plus the <= 2 ulp spread
-                             # of sincosf against torch.sin / torch.cos)
+                             # the 121-tap FIR's, plus its oscillator's
+                             # <= 2 ulp against torch.sin / torch.cos)
 BF16_TOL = 1e-2              # x max|f32 plain|: bf16 operand rounding
 
 
@@ -138,6 +146,13 @@ PEAK_F32 = 67e12             # f32 outside the tensor cores, FLOP/s
 PEAK_BYTES = 3.35e12         # HBM3, bytes/s
 PLANTED = (3, 8, 12)         # grid indices of carrier_grid(16)
 K5_START = 10_000_000        # a start index where |phase| reaches ~5e6 rad
+# instructions one K5 oscillator issues at the specialised shape: the
+# mixing loop of its SASS (cuobjdump -sass, nvcc 12.9, sm_90a) holds 452
+# for a thread's 11 samples of one carrier (phase, fp64 reduction,
+# polynomials, correction, quarter turn, complex product, store)
+K5_OSC_INSTRUCTIONS = 41
+# (frontend, MS/s) of the decision checks beyond K = 2D * Lp = 1600
+DECISION_RATES = ((16, 8.0), ("pfb", 3.2), (16, 20.0))
 KERNELS = {                  # wrapper -> (source, TPU kernel it replaces)
     "s2d_conv": ("tetraear_tpu_torch/csrc/s2d_conv.cu",
                  "tetraear_tpu/ops/pallas/s2d_conv.py:71"),
@@ -151,6 +166,8 @@ KERNELS = {                  # wrapper -> (source, TPU kernel it replaces)
                     "tetraear_tpu/ops/pallas/s2d_conv.py:162"),
     "s2d_conv_dt": ("tetraear_tpu_torch/csrc/s2d_conv_dt.cu",
                     "tetraear_tpu/ops/pallas/s2d_conv.py:108"),
+    "s2d_conv_dt_bf16": ("tetraear_tpu_torch/csrc/s2d_conv_tc.cu",
+                         "tetraear_tpu/ops/pallas/s2d_conv.py:108"),
     "fused_channelize": ("tetraear_tpu_torch/csrc/fused_channelize.cu",
                          "tetraear_tpu/ops/pallas/fused_channelize.py:59"),
 }
@@ -337,29 +354,34 @@ def phase_kernel(device) -> dict:
             if bf16:
                 _held(tag + " vs f32", "K1-of", got, f32, BF16_TOL)
         del x, got, want, f32
-    worst["s2d_conv_dt"] = kernel_k4(device)
+    worst.update(kernel_k4(device))
     worst["fused_channelize"] = kernel_k5(device)
     return worst
 
 
-def kernel_k4(device) -> float:
-    """K4 (dt, dt_bf16) against the plain conv with K1's bounds: the f32
-    sum-order bound (bf16 operands rounded alike on both sides) and, for
-    bf16, BF16_TOL of the f32 result.  The filterbank kernel's 192 rows
-    and pad_l = 767 at the ragged n."""
+def kernel_k4(device) -> dict:
+    """K4 against the plain conv: dt (CUDA cores) within the f32
+    sum-order bound; dt_bf16 (the tensor-core kernel, unfolded, its own
+    tap-major order) within tc_tol of the plain bf16 conv and BF16_TOL of
+    the f32 result.  The filterbank kernel's 192 rows and pad_l = 767 at
+    the ragged n."""
     from tetraear_tpu_torch.ops.kernels import s2d_conv as kc
-    worst = 0.0
+    worst = {"s2d_conv_dt": 0.0, "s2d_conv_dt_bf16": 0.0}
     for num_carriers, n in ((16, BENCH_N), ("pfb", RAGGED_N)):
         x, k2, gc, L, decim = _case(num_carriers, n, 5, device)
         f32 = kc.s2d_conv_plain(x, k2, gc, L, decim)
+        tc = kc.tc_pack_dt(k2)
         for bf16 in (False, True):
-            got = _launched("s2d_conv_dt", lambda: kc.s2d_conv_dt(
-                x, k2, gc, L, decim, bf16=bf16))
+            name = "s2d_conv_dt_bf16" if bf16 else "s2d_conv_dt"
+            got = _launched(name, lambda: kc.s2d_conv_dt(
+                x, k2, gc, L, decim, bf16=bf16, tc=tc))
             want = (kc.s2d_conv_plain(x, k2, gc, L, decim, bf16=True)
                     if bf16 else f32)
             tag = (f"K4 {num_carriers} C2={k2.shape[0]} gc={gc} n={n} "
-                   f"{'dt_bf16' if bf16 else 'dt'}")
-            worst = max(worst, _held(tag, "K4", got, want, TOL))
+                   + (f"dt_bf16 (tensor cores: {tc.rows} rows, {tc.tile_m} "
+                      f"positions)" if bf16 else "dt"))
+            worst[name] = max(worst[name], _held(
+                tag, "K4", got, want, tc_tol(k2) if bf16 else TOL))
             if bf16:
                 _held(tag + " vs f32", "K4", got, f32, BF16_TOL)
         del x, got, want, f32
@@ -387,21 +409,28 @@ def _k5_oracle(x, offsets, taps, fs: float, decim: int, start: int,
 
 def kernel_k5(device) -> float:
     """K5 against mix_to_baseband + fir_decimate on the card, both with
-    the same f32 phases: the FIR's f32 sum order plus the <= 2 ulp spread
-    of sincosf against torch.sin / torch.cos, within TOL x max|plain|.
+    the same f32 phases: the FIR's f32 sum order plus the <= 2 ulp of
+    K5's oscillator against torch.sin / torch.cos, within TOL x
+    max|plain|.
     Both are also held against a float64 oracle of the same phases on
-    256 outputs, which says which of the two is off if they disagree."""
+    256 outputs, which says which of the two is off if they disagree.
+    The staged frontend's 121 taps at 2.4 MS/s run the specialised path,
+    its 397 taps at 8 MS/s (D = 33) the generic one."""
     import numpy as np
     import torch
+    from tetraear_tpu_torch.config import ReceiverConfig
     from tetraear_tpu_torch.models.realpair import staged_state
     from tetraear_tpu_torch.ops.channelizer import carrier_grid
     from tetraear_tpu_torch.ops.kernels import fused_channelize as k5
-    state = staged_state(carrier_grid(16))
-    offs = torch.as_tensor(state.offsets_hz, device=device)
-    taps = torch.as_tensor(state.taps_d, device=device)
-    fs = state.sample_rate_hz
     worst = 0.0
-    for n, start in ((BENCH_N, 0), (RAGGED_N, K5_START)):
+    for msps, n, start in ((2.4, BENCH_N, 0), (2.4, RAGGED_N, K5_START),
+                           (2.4, RAGGED_N, 2**24 + 12_345),
+                           (8.0, RAGGED_N, K5_START)):
+        state = staged_state(carrier_grid(16),
+                             ReceiverConfig(sample_rate_hz=msps * 1e6))
+        offs = torch.as_tensor(state.offsets_hz, device=device)
+        taps = torch.as_tensor(state.taps_d, device=device)
+        fs = state.sample_rate_hz
         gen = torch.Generator(device=device).manual_seed(6)
         x = torch.randn(n, dtype=torch.complex64, device=device,
                         generator=gen) * 0.1
@@ -414,7 +443,11 @@ def kernel_k5(device) -> float:
         oracle = _k5_oracle(x, offs, taps, fs, state.decim, start, m_idx)
         errs = {name: np.abs(y[:, m_idx].cpu().numpy() - oracle).max()
                 for name, y in (("K5", got), ("plain", want))}
-        tag = f"K5 16 carriers L={len(taps)} n={n} start={start}"
+        path = ("specialised" if (len(taps), state.decim) == k5.SPECIALISED
+                else "generic")
+        tag = (f"K5 16 carriers {msps} MS/s L={len(taps)} D={state.decim} "
+               f"({path}, {k5.tile_outputs(len(taps), state.decim)} outputs "
+               f"a tile) n={n} start={start}")
         print(f"[kernel] {tag}: max|phase| = "
               f"{2 * np.pi * offs.abs().max().item() * (start + n) / fs:.3e}"
               " rad; on 256 "
@@ -462,15 +495,32 @@ def _path(tag: str, wrapper, run) -> dict:
     return counts
 
 
+def _cli(argv: list) -> int:
+    """The port's CLI main on argv, the root logger put back as it was
+    after it (main sets up its per-run log files, in TETRAEAR_TPU_LOG_DIR,
+    and a console handler)."""
+    import logging
+    from tetraear_tpu_torch.ui.cli import main
+    root = logging.getLogger()
+    saved = root.handlers[:], root.level
+    try:
+        return main(argv)
+    finally:
+        for h in root.handlers:
+            if h not in saved[0]:
+                h.close()
+        root.handlers[:] = saved[0]
+        root.setLevel(saved[1])
+
+
 def _cli_run(tag: str, argv: list, x, want: dict) -> None:
     import numpy as np
-    from tetraear_tpu_torch.ui.cli import main
     with tempfile.TemporaryDirectory() as tmp:
         iq = Path(tmp) / "planted.cf32"
         out = Path(tmp) / "planted_frames.jsonl"
         # .cf32: interleaved float32 I/Q
         np.asarray(x, np.complex64).view(np.float32).tofile(iq)
-        rc = main(["decode", str(iq), *argv, "-o", str(out)])
+        rc = _cli(["decode", str(iq), *argv, "-o", str(out)])
         got = _texts([map(json.loads, out.read_text().splitlines())])
     print(f"[decode] {tag}: cli exit {rc}")
     if rc != 0:
@@ -501,12 +551,15 @@ def _same_candidates(tag: str, mc, x, rows) -> None:
         va, vb = a["cand_valid"][r], b["cand_valid"][r]
         same &= bool(np.array_equal(va, vb)) and all(
             np.array_equal(a[f][r][va], b[f][r][vb]) for f in fields[1:])
+    crc_ok = (a["crc_ok"] & a["cand_valid"])[list(rows)]
     print(f"[decode] {tag}: candidates on planted rows {sorted(rows)} "
           f"({int(a['cand_valid'][list(rows)].sum())} valid, "
-          f"{int((a['crc_ok'] & a['cand_valid'])[list(rows)].sum())} CRC-ok) "
+          f"{int(crc_ok.sum())} CRC-ok) "
           f"{'equal' if same else 'DIFFER'} to the plain bf16 conv's")
     if not same:
         fail("decode", f"{tag}: candidates differ from the plain bf16 conv's")
+    if not crc_ok.any(axis=-1).all():
+        fail("decode", f"{tag}: a planted row has no CRC-ok candidate")
 
 
 def phase_decode(device) -> dict:
@@ -572,20 +625,23 @@ def phase_decode(device) -> dict:
         "pfb gather", gather, xpfb, 96, wantpfb)))
     mc = of4["pallas_of4"]
 
-    def dt_run():
+    def dt_run(variant):
         # the op-level entry point of K4, then the real-pair tail
         x = torch.as_tensor(x16, device=device)
         out = pallas_s2d_conv(x, mc.kernel_s2d, mc.gc, mc.L, mc.decim,
-                              variant="dt")
+                              variant=variant)
         res = _demod_from_pair(out[:16], out[16:], mc.sps,
                                z_rot=(mc.z_cos, mc.z_sin))
         frames = MulticarrierDecoder(16, device=device).decode(
             mc.candidates(res.bits, res.sync_corr, res.count))
-        _check_texts("16 carriers pallas_s2d_conv dt", want16,
-                      _texts(frames))
-    add(_path("pallas_s2d_conv(variant='dt') + real-pair tail",
-              "s2d_conv_dt", dt_run))
-    # the tensor-core route's decisions against the plain bf16 conv's
+        _check_texts(f"16 carriers pallas_s2d_conv {variant}", want16,
+                     _texts(frames))
+    for variant, wrapper in (("dt", "s2d_conv_dt"),
+                             ("dt_bf16", "s2d_conv_dt_bf16")):
+        add(_path(f"pallas_s2d_conv(variant='{variant}') + real-pair tail",
+                  wrapper, lambda: dt_run(variant)))
+    # the tensor-core route's decisions against the plain bf16 conv's,
+    # at the main path's depth and beyond K = 1600
     _same_candidates("16 carriers pallas_bf16", MulticarrierFrontend.
                      from_offsets(carrier_grid(16), device=device,
                                   conv="pallas_bf16"), x16, want16)
@@ -594,7 +650,34 @@ def phase_decode(device) -> dict:
                      wantpfb)
     _same_candidates("16 carriers pallas_of4_bf16", of4["pallas_of4_bf16"],
                      x16, want16)
+    for kind, msps in DECISION_RATES:
+        fe, x, want = _planted_frontend(kind, msps, device)
+        k2 = fe.kernel_s2d
+        _same_candidates(f"{'full band' if kind == 'pfb' else '16 carriers'}"
+                         f" pallas_bf16 at {msps} MS/s (K = "
+                         f"{k2.shape[1] * k2.shape[2]})", fe, x, want)
     return launches
+
+
+def _planted_frontend(kind, msps: float, device):
+    """(the `pallas_bf16` frontend at `msps` MS/s, its planted signal,
+    {row: planted text}): texts on grid indices PLANTED of
+    carrier_grid(16), or ("pfb") on three channels of the full band."""
+    from tetraear_tpu_torch.config import ReceiverConfig
+    from tetraear_tpu_torch.models.multicarrier import (
+        MulticarrierFrontend, PfbMulticarrierFrontend)
+    from tetraear_tpu_torch.ops.channelizer import carrier_grid
+    from tetraear_tpu_torch.utils.synth import planted_pfb, planted_wideband
+    cfg = ReceiverConfig(sample_rate_hz=msps * 1e6)
+    if kind == "pfb":
+        x, want = planted_pfb(sample_rate_hz=cfg.sample_rate_hz)
+        return (PfbMulticarrierFrontend.from_config(cfg, device=device,
+                                                    conv="pallas_bf16"),
+                x, want)
+    x, want = planted_wideband(PLANTED, sample_rate_hz=cfg.sample_rate_hz)
+    return (MulticarrierFrontend.from_offsets(carrier_grid(16), cfg,
+                                              device=device,
+                                              conv="pallas_bf16"), x, want)
 
 
 def _time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -856,11 +939,15 @@ def phase_timing(device, card: str) -> dict:
 
 
 def phase_timing_k4(device, card: str, t: dict) -> None:
-    """K4 against its plain version and against K1 at C2 = 32."""
+    """K4 against its plain version and against K1 at C2 = 32: dt on the
+    CUDA cores, dt_bf16 on the tensor cores (packed once, as a caller
+    holding the weights would), each with its bound and the cuDNN conv of
+    the same contraction in its type."""
     import torch
     from tetraear_tpu_torch.ops.kernels import s2d_conv as kc
     x, k2, gc, L, decim = _case(16, BENCH_N, 2, device)
     tc = kc.tc_pack_k1(k2)
+    tc_dt = kc.tc_pack_dt(k2)
     for bf16 in (False, True):
         tag = "bf16" if bf16 else "f32"
         for key, other, name in (
@@ -871,20 +958,29 @@ def phase_timing_k4(device, card: str, t: dict) -> None:
                                            tc=tc),
                  f"K1 {tag}")):
             ms, other_ms, runs = _pair_ms(
-                lambda: kc.s2d_conv_dt(x, k2, gc, L, decim, bf16=bf16),
+                lambda: kc.s2d_conv_dt(x, k2, gc, L, decim, bf16=bf16,
+                                       tc=tc_dt),
                 other, 10)
             t.setdefault(f"k4_{tag}", {"ms": ms})
             t[f"k4_{tag}"][f"{key}_ms"] = other_ms
             print(f"[timing] {card}: K4 {'dt_bf16' if bf16 else 'dt'} "
                   f"{runs[0]:.4f} / {runs[1]:.4f} ms, {name} {runs[2]:.4f} / "
                   f"{runs[3]:.4f} ms")
-    # K4 dt computes K1 f32's function: the same bound and library call
-    k4 = t["k4_f32"]
-    k4["bound_ms"], k4["bound_by"] = _bound(*_conv_work(x, k2, 1, decim),
-                                            PEAK_F32)
-    k4["library_ms"] = t["k1_f32"]["library_ms"]
-    print(f"[timing] {card}: K4 dt bound {k4['bound_ms']:.4f} ms = "
-          f"{k4['bound_ms'] / k4['ms']:.1%} of it")
+        # K4 computes K1's function: K1's bound in the same type, and the
+        # same library call timed here on K4's inputs
+        k4 = t[f"k4_{tag}"]
+        work = _conv_work(x, k2, 1, decim)
+        k4["bound_ms"], k4["bound_by"] = _bound(
+            *work, PEAK_BF16 if bf16 else PEAK_F32)
+        lib = _library_conv(x, k2, gc, L, decim, 1,
+                            torch.bfloat16 if bf16 else torch.float32)
+        k4["library_ms"] = (_time_ms(lib) + _time_ms(lib)) / 2
+        print(f"[timing] {card}: K4 {'dt_bf16' if bf16 else 'dt'} "
+              f"{k4['ms']:.4f} ms = {work[0] / k4['ms'] / 1e9:.1f} TFLOP/s, "
+              f"bound {k4['bound_ms']:.4f} ms ({k4['bound_by']}) = "
+              f"{k4['bound_ms'] / k4['ms']:.1%} of it; cuDNN F.conv1d "
+              f"({'bf16 operands and output' if bf16 else 'f32, TF32 off'}) "
+              f"{k4['library_ms']:.4f} ms")
 
 
 def _peak_mib(fn) -> float:
@@ -930,17 +1026,30 @@ def phase_timing_staged(device, card: str, t: dict) -> None:
     ms, plain_ms, runs = _pair_ms(lambda: k5.fused_channelize(x, *args),
                                   lambda: k5.fused_channelize_plain(x, *args))
     # per input sample and carrier one complex rotation (6 FLOP; the
-    # sincosf is not counted), per output and tap one complex-by-real
+    # oscillator is not counted), per output and tap one complex-by-real
     # multiply-add (4 FLOP); x read once, the complex64 output written once
     carriers, taps = mc.offsets_hz.shape[0], mc.taps_d.shape[0]
     m_out = -(-BENCH_N // mc.decim)
     bound_ms, by = _bound(
         6.0 * carriers * BENCH_N + 4.0 * carriers * m_out * taps,
         8.0 * BENCH_N + 8.0 * carriers * m_out, PEAK_F32)
+    # the oscillators' floor: K5_OSC_INSTRUCTIONS issued per carrier and
+    # sample at one instruction per lane, 4 schedulers x 32 lanes a clock
+    # on every SM, at the card's maximum SM clock
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True,
+        text=True).stdout.split()[0])
+    osc_ms = (K5_OSC_INSTRUCTIONS * carriers * BENCH_N
+              / (sms * 4 * 32 * mhz * 1e6) * 1e3)
     t["k5"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": by, "library_ms": None}
-    print(f"[timing] {card}: K5 bound {bound_ms:.4f} ms ({by}) = "
-          f"{bound_ms / ms:.1%} of it")
+               "bound_by": by, "library_ms": None, "osc_floor_ms": osc_ms}
+    print(f"[timing] {card}: K5 {ms:.4f} ms; FLOP bound {bound_ms:.4f} ms "
+          f"({by}) = {bound_ms / ms:.1%} of it; oscillator floor "
+          f"{osc_ms:.4f} ms ({K5_OSC_INSTRUCTIONS} instructions x "
+          f"{carriers} x {BENCH_N} oscillators on {sms} SMs x 128 lanes at "
+          f"{mhz:.0f} MHz) = {osc_ms / ms:.1%} of it")
     peak = _peak_mib(lambda: k5.fused_channelize(x, *args))
     plain_peak = _peak_mib(lambda: k5.fused_channelize_plain(x, *args))
     print(f"[timing] {card}: K5 16 carriers L={len(mc.taps_d)} "
@@ -951,14 +1060,29 @@ def phase_timing_staged(device, card: str, t: dict) -> None:
     if busy_ms is not None:
         print(f"[timing]   K5 device time {busy_ms:.3f} ms: "
               + ", ".join(f"{name[:40]} {v:.3f}" for name, v in top[:3]))
-    # the same launch with every |phase| under 105615 rad, where sincosf
-    # never takes its slow reduction (16 carriers at 1 kHz: |phase| <=
-    # 2.2e4 rad over the block): the difference is the slow path's cost
+    # the same launch with every |phase| under 2.2e4 rad (16 carriers at
+    # 1 kHz): the exact reduction makes the time independent of the phase
     low = torch.full_like(mc.offsets_hz, 1e3)
     fast_ms = _time_ms(lambda: k5.fused_channelize(x, low, *args[1:]))
-    print(f"[timing] {card}: K5 with every phase on sincosf's fast path "
+    print(f"[timing] {card}: K5 with every |phase| under 2.2e4 rad "
           f"{fast_ms:.3f} ms (the bench carriers' {ms:.3f} ms)")
-    t["k5"]["fast_path_ms"] = fast_ms
+    t["k5"]["small_phase_ms"] = fast_ms
+    # the generic path: the staged frontend's taps at 8 MS/s on the same
+    # samples (L = 397, D = 33)
+    from tetraear_tpu_torch.config import ReceiverConfig
+    from tetraear_tpu_torch.models.realpair import staged_state
+    st8 = staged_state(carrier_grid(16), ReceiverConfig(sample_rate_hz=8e6))
+    args8 = (torch.as_tensor(st8.offsets_hz, device=device),
+             st8.sample_rate_hz, st8.decim,
+             torch.as_tensor(st8.taps_d, device=device))
+    ms8, plain8, runs8 = _pair_ms(lambda: k5.fused_channelize(x, *args8),
+                                  lambda: k5.fused_channelize_plain(x, *args8),
+                                  iters=4)
+    print(f"[timing] {card}: K5 generic path (8 MS/s taps: L = "
+          f"{len(st8.taps_d)}, D = {st8.decim}, "
+          f"{k5.tile_outputs(len(st8.taps_d), st8.decim)} outputs a tile) "
+          f"{runs8[0]:.3f} / {runs8[1]:.3f} ms, plain {runs8[2]:.3f} / "
+          f"{runs8[3]:.3f} ms")
     y = k5.fused_channelize(x, *args)
     yc = fir_filter_same(y, mc.taps_c)
     bits, corr, count = _demod_front(yc, mc.sps)
@@ -1080,14 +1204,13 @@ def _single_cli_run(profile: str) -> None:
     """The port's CLI `decode --profile P` on a planted capture (etsi: a
     true-rate pi/4 capture); the planted text must come back."""
     import numpy as np
-    from tetraear_tpu_torch.ui.cli import main
     from tetraear_tpu_torch.utils.synth import planted_single
     x, text = planted_single(profile)
     with tempfile.TemporaryDirectory() as tmp:
         iq = Path(tmp) / "planted.cf32"
         out = Path(tmp) / "planted_frames.jsonl"
         np.asarray(x, np.complex64).view(np.float32).tofile(iq)
-        rc = main(["decode", str(iq), "--profile", profile, "-o", str(out)])
+        rc = _cli(["decode", str(iq), "--profile", profile, "-o", str(out)])
         texts = [json.loads(line).get("sds_message")
                  for line in out.read_text().splitlines()]
     hit = text in texts
@@ -1204,7 +1327,11 @@ def phase_timing_single(device, card: str) -> None:
 
 def main() -> int:
     card = phase_device()
+    import os
     import torch
+    # the CLI's per-run log files go to a directory of this run
+    log_dir = tempfile.TemporaryDirectory()
+    os.environ["TETRAEAR_TPU_LOG_DIR"] = log_dir.name
     try:
         import tetraear_tpu_torch  # noqa: F401
     except ImportError as e:
@@ -1231,7 +1358,7 @@ def main() -> int:
     times = {"s2d_conv": "k1_f32", "s2d_conv_bf16": "k1_bf16",
              "s2d_conv_of": "k1of_f32", "s2d_conv_of_bf16": "k1of_bf16",
              "s2d_conv_db": "k3", "s2d_conv_dt": "k4_f32",
-             "fused_channelize": "k5"}
+             "s2d_conv_dt_bf16": "k4_bf16", "fused_channelize": "k5"}
     print(card)
     print(json.dumps({"kernels": [{
         "name": name,

@@ -7,6 +7,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import jax
 import pytest
 import torch
 
@@ -17,6 +18,26 @@ from tetraear_tpu_torch.ui import cli
 
 REPO = Path(__file__).resolve().parents[2]
 PLANTED = (3, 8, 12)        # grid indices of carrier_grid(16)
+
+
+@pytest.fixture(autouse=True)
+def _log_dir(tmp_path, monkeypatch):
+    """Both CLIs set up their per-run log files in TETRAEAR_TPU_LOG_DIR,
+    and the JAX package's CLI turns on jax's persistent compilation cache
+    under $HOME for the rest of the process (tetraear_tpu/ui/cli.py:
+    1292-1301): here both go to a temporary directory, and the cache is
+    off again after each test, so that no test writes into the checkout
+    or $HOME and the worker's later tests compile afresh."""
+    from jax._src import compilation_cache
+    log_dir = tmp_path / "logs"
+    monkeypatch.setenv("TETRAEAR_TPU_LOG_DIR", str(log_dir))
+    monkeypatch.setenv("HOME", str(tmp_path))
+    saved = (jax.config.jax_compilation_cache_dir,
+             jax.config.jax_persistent_cache_min_compile_time_secs)
+    yield log_dir
+    jax.config.update("jax_compilation_cache_dir", saved[0])
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", saved[1])
+    compilation_cache.reset_cache()
 
 
 @pytest.fixture(scope="module")
@@ -169,7 +190,7 @@ def test_conv_choices_come_from_the_variant_table(planted, capsys):
     assert cli.resolve_conv("auto", cuda, True) == "s2d"
     assert cli.resolve_conv("pallas", cpu, True) == "pallas"
     assert cli.build_parser().parse_args(
-        ["decode", "x.cf32"]).conv == "pallas_bf16"
+        ["decode", "x.cf32"]).conv == "auto"
 
 
 def test_auto_conv_on_cpu_decodes_through_the_staged_chain(tmp_path,
@@ -210,6 +231,71 @@ def test_auto_conv_pfb_on_cpu_decodes_through_the_gather_form(tmp_path,
     got = _texts(out)
     for c, text in want.items():
         assert text in got.get(c, set()), (c, got)
+
+
+@pytest.mark.parametrize("pfb", [False, True], ids=["carriers", "pfb"])
+def test_conv_defaults_to_auto(tmp_path, capsys, pfb):
+    """Without --conv, `decode --carriers N` (and with --pfb) resolves
+    `auto` as the reference CLI does, whose --conv default is auto: on
+    the CPU the staged chain (with --pfb the gather-form filterbank), and
+    each planted text comes back on its channel."""
+    from tetraear_tpu_torch.utils.synth import planted_pfb, planted_wideband
+    if pfb:
+        x, want = planted_pfb(num_frames=2)
+        argv, chosen, n = ["--carriers", "16", "--pfb"], "gather", 96
+    else:
+        x, want = planted_wideband((0, 2), num_carriers=3, num_frames=2)
+        argv, chosen, n = ["--carriers", "3"], "staged", 3
+    iq = tmp_path / "planted.cf32"
+    save_iq(iq, x)
+    out = tmp_path / "frames.jsonl"
+    rc = cli.main(["decode", str(iq), *argv, "--device", "cpu", "-o",
+                   str(out)])
+    log = capsys.readouterr().out
+    assert rc == 0
+    assert f"conv auto -> {chosen}" in log and f"across {n} carriers" in log
+    got = _texts(out)
+    for k, text in want.items():
+        assert text in got.get(k, set()), (k, got)
+
+
+@pytest.mark.parametrize("verbose", [False, True])
+def test_verbose_flag_sets_up_logging(_log_dir, tmp_path, capsys, verbose):
+    """`decode -v` parses as in the reference (an argparse error before
+    the flag existed) and main sets up the per-run log files in
+    TETRAEAR_TPU_LOG_DIR, with DEBUG on the console under -v and INFO
+    without; the decode itself is unchanged."""
+    import logging
+    from tetraear_tpu_torch.utils.synth import planted_single
+    x, text = planted_single("ref-compat", num_frames=2)
+    iq = tmp_path / "single.cf32"
+    save_iq(iq, x)
+    out = tmp_path / "frames.jsonl"
+    root = logging.getLogger()
+    saved = root.handlers[:], root.level
+    try:
+        rc = cli.main(["decode", str(iq), "--device", "cpu", "-o", str(out)]
+                      + ["-v"] * verbose)
+        console = [h for h in root.handlers
+                   if type(h) is logging.StreamHandler]
+        assert [h.level for h in console] == [
+            logging.DEBUG if verbose else logging.INFO]
+        for h in root.handlers:
+            h.flush()
+    finally:
+        for h in root.handlers:
+            h.close()
+        root.handlers[:], _ = saved
+        root.setLevel(saved[1])
+    log = capsys.readouterr().out
+    assert rc == 0 and f"Logging to: {_log_dir}" in log
+    assert cli.build_parser().parse_args(
+        ["decode", "x.cf32", "-v"]).verbose
+    everything = list(_log_dir.glob("tetraear_tpu_*.log"))
+    assert len(everything) == 1
+    assert "Logging to" in everything[0].read_text()
+    assert text in [json.loads(line).get("sds_message")
+                    for line in out.read_text().splitlines()]
 
 
 def test_cuda_device_without_card_raises(planted):

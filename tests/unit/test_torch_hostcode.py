@@ -365,3 +365,59 @@ def test_jsonl_recorder_bytes_equal(tmp_path, include_bits):
             for f in frames:
                 r.write(f)
     assert paths["port"].read_bytes() == paths["ref"].read_bytes()
+
+
+def _log_run(module, pkg: str, log_dir: Path, verbose: bool) -> dict:
+    """setup_logging of `module` into log_dir, one record per routed
+    logger of package `pkg` and one foreign record, then the files it
+    wrote as {name with the run id cut: lines with the time and the
+    package name cut}, and the console handler's level."""
+    import logging
+    root = logging.getLogger()
+    saved = root.handlers[:], root.level
+    try:
+        files = module.setup_logging(verbose=verbose, log_dir=log_dir)
+        console = [h.level for h in root.handlers
+                   if type(h) is logging.StreamHandler]
+        for name in ("ui.cli", "signal.x", "io.replay", "models.m",
+                     "core.decoder", "protocol.parser", "crypto.tea",
+                     "codec.run", "recording.r", "audio.blocks", "frames"):
+            for level in (logging.DEBUG, logging.INFO):
+                logging.getLogger(f"{pkg}.{name}").log(level, "%s %d",
+                                                       name, level)
+        logging.getLogger("elsewhere").warning("foreign")
+    finally:
+        for h in root.handlers:
+            h.close()
+        root.handlers[:] = saved[0]
+        root.setLevel(saved[1])
+    run_id = files["all"].stem.removeprefix("tetraear_tpu_")
+    written = {}
+    for path in sorted(log_dir.iterdir()):
+        lines = [line.split(" ", 2)[2].replace(pkg + ".", "PKG.")
+                 for line in path.read_text().splitlines()]
+        written[path.name.replace(run_id, "RUN")] = lines
+    assert {p.name for p in files.values()} >= {p.name
+                                                for p in log_dir.iterdir()}
+    return {"files": written, "console": console}
+
+
+@pytest.mark.parametrize("verbose", [False, True])
+def test_logging_setup_routes_like_the_reference(tmp_path, monkeypatch,
+                                                 verbose):
+    """The port's copy of ui/logging_setup: the same six per-run files,
+    each record of the port's package routed to the file the reference
+    routes its own package's record of the same name to, the same
+    console level for -v, and the same directories from the same
+    environment overrides."""
+    from tetraear_tpu.ui import logging_setup as jlog
+    from tetraear_tpu_torch.ui import logging_setup as tlog
+    mine = _log_run(tlog, "tetraear_tpu_torch", tmp_path / "port", verbose)
+    ref = _log_run(jlog, "tetraear_tpu", tmp_path / "ref", verbose)
+    assert mine == ref
+    assert len(mine["files"]) == 6
+    for var in ("TETRAEAR_TPU_LOG_DIR", "TETRAEAR_TPU_DATA_DIR",
+                "TETRAEAR_TPU_RECORDS_DIR"):
+        monkeypatch.setenv(var, str(tmp_path / var))
+    for fn in ("get_log_dir", "get_user_data_dir", "get_records_dir"):
+        assert getattr(tlog, fn)() == getattr(jlog, fn)()

@@ -87,9 +87,12 @@ def _weights(k2: np.ndarray, fold: int) -> torch.Tensor:
 
 def _pack(k2: np.ndarray, fold) -> k1.TcWeights:
     """What the bf16 wrappers launch: K1's weights ("k1", as its
-    tc_k1_fold) or the output-folded kernel of `fold`."""
+    tc_k1_fold), K4's ("dt", unfolded) or the output-folded kernel of
+    `fold`."""
     if fold == "k1":
         return k1.tc_pack_k1(torch.from_numpy(k2))
+    if fold == "dt":
+        return k1.tc_pack_dt(torch.from_numpy(k2))
     return k1.tc_pack(_weights(k2, fold), fold)
 
 
@@ -130,12 +133,14 @@ def _emulate(x: torch.Tensor, tc: k1.TcWeights, gc: int, L: int,
 class TestPacking:
     @pytest.mark.parametrize("num_carriers,fold,msps", [
         (16, "k1", 2.4), ("pfb", "k1", 2.4), (16, 4, 2.4), (16, 6, 2.4),
-        (16, "k1", 8.0), ("pfb", "k1", 1.8)])
+        (16, "k1", 8.0), ("pfb", "k1", 1.8), (16, "dt", 2.4),
+        ("pfb", "dt", 2.4)])
     def test_unpack_inverts_pack(self, num_carriers, fold, msps):
         """unpack(pack(K)) is K's (rows, K) matrix rounded to bf16, with k =
-        a * ich + i, for K1 at C2 = 32 (as its fold of 4) and 192, the
-        folded kernels, 16 carriers at 8 MS/s and the odd-D full band;
-        the padded tail of K and of the last row group is zero."""
+        a * ich + i, for K1 at C2 = 32 (as its fold of 4) and 192, K4's
+        unfolded weights at both, the folded kernels, 16 carriers at 8
+        MS/s and the odd-D full band; the padded tail of K and of the last
+        row group is zero."""
         k2, _, _, _ = _kernel(num_carriers, msps)
         tc = _pack(k2, fold)
         f = tc.fold
@@ -200,6 +205,50 @@ class TestPacking:
         assert torch.equal(k1.fold_channels(k_of, 1), k_of)
 
 
+# Planted decodes beyond the contraction depth K = 2D * Lp = 1600 up to
+# which the route holds the f32 sum-order bound: 16 carriers at 8 MS/s
+# (K = 5082), the full band at 3.2 MS/s (K = 2054) and 16 carriers at 20
+# MS/s (K = 12782)
+DECISION_RATES = [(16, 8.0), ("pfb", 3.2), (16, 20.0)]
+
+
+def _planted_frontend(kind, msps: float, device):
+    """(the `pallas_bf16` frontend at `msps` MS/s, its planted signal,
+    {row: planted text}): texts on grid indices 3, 8 and 12 of
+    carrier_grid(16), or on three channels of the full band."""
+    from tetraear_tpu_torch.ops.channelizer import carrier_grid
+    from tetraear_tpu_torch.utils.synth import planted_pfb, planted_wideband
+    cfg = TReceiverConfig(sample_rate_hz=msps * 1e6)
+    if kind == "pfb":
+        x, want = planted_pfb(sample_rate_hz=cfg.sample_rate_hz)
+        fe = PfbMulticarrierFrontend.from_config(cfg, device=device,
+                                                 conv="pallas_bf16")
+    else:
+        x, want = planted_wideband((3, 8, 12),
+                                   sample_rate_hz=cfg.sample_rate_hz)
+        fe = MulticarrierFrontend.from_offsets(carrier_grid(16), cfg,
+                                               device=device,
+                                               conv="pallas_bf16")
+    return fe, x, want
+
+
+class TestDecisionsAtOtherRates:
+    @pytest.mark.parametrize("kind,msps", DECISION_RATES)
+    def test_planted_signal_decodes(self, kind, msps):
+        """On the CPU (the plain bf16 conv), each rate's planted signal
+        decodes every text on its row with a CRC-ok candidate: the
+        signal the card's decision check compares on."""
+        from tetraear_tpu_torch.models.multicarrier import MulticarrierDecoder
+        fe, x, want = _planted_frontend(kind, msps, "cpu")
+        assert fe.kernel_s2d.shape[1] * fe.kernel_s2d.shape[2] > 1600
+        res = fe(x)
+        frames = MulticarrierDecoder(res.bits.shape[0],
+                                     device="cpu").decode(res)
+        for row, text in want.items():
+            assert text in {f.get("sds_message") for f in frames[row]}
+            assert (res.crc_ok & res.cand_valid)[row].any()
+
+
 def _banks(ich: int, step: int, c0: int) -> list:
     """Banks of one half warp's 8-byte A-fragment loads (rows g of an m16
     slab, lanes t = 0..3, two words each) at window word offset c0."""
@@ -234,6 +283,21 @@ class TestLayout:
             assert k1.tc_config(ich, ksteps) == want
             assert k1.tc_smem_bytes(ich, ksteps, *want) <= k1.MAX_SMEM_BYTES
         assert k1.tc_smem_bytes(40, 98, 64, 256, 98) == 225_088
+
+    def test_k4_runs_unfolded(self):
+        """K4's bf16 route packs the 16-carrier weights unfolded (C2 = 32
+        rows, K = 2D * Lp = 1540 in 98 k-steps, tap-major) into one block
+        of 64 rows, half of them zero, that holds all the weights (256
+        positions a tile); the full band's 192 rows take three blocks."""
+        k2, _, _, _ = _kernel(16)
+        tc = k1.tc_pack_dt(torch.from_numpy(k2))
+        assert (tc.c2, tc.ich, tc.fold) == (32, 20, 1)
+        assert (tc.rows, tc.tile_m, tc.kchunk) == (64, 256, 98)
+        assert tc.packed.shape == (1, 98, 2, 8, 8, 8)
+        kp, _, _, _ = _kernel("pfb")
+        tcp = k1.tc_pack_dt(torch.from_numpy(kp))
+        assert (tcp.c2, tcp.fold, tcp.rows, tcp.packed.shape[0]) == (
+            192, 1, 64, 3)
 
     def test_weights_stream_where_they_do_not_fit(self):
         """Where no block holds a row group's weights (16 carriers at 8
@@ -272,11 +336,12 @@ class TestEmulation:
     @pytest.mark.parametrize("variant,fold,n,msps", [
         ("bf16", "k1", 40_000, 2.4), ("bf16", "k1", 12_345, 2.4),
         ("of4_bf16", 4, 40_007, 2.4), ("of1_bf16", "k1", 30_011, 8.0),
-        ("of3_bf16", 3, 20_003, 1.8)])
+        ("of3_bf16", 3, 20_003, 1.8), ("dt_bf16", "dt", 40_003, 2.4)])
     def test_index_map_matches_pallas(self, variant, fold, n, msps):
         """The kernel's index map as the wrapper launches it (the Hankel
         view of the bf16-rounded stream times the packed weights,
-        un-folded; K1 as its tc_k1_fold) vs the JAX package's
+        un-folded; K1 as its tc_k1_fold, K4's dt_bf16 unfolded) vs the
+        JAX package's
         pallas_s2d_conv in interpret mode: both multiply the same bf16
         operands and sum in f32, so only the sum order differs (the f32
         sum-order bound, 4e-6 x max).  At 8 MS/s (2D = 66, over the
@@ -408,3 +473,30 @@ class TestOnCard:
         got = torch.cat([yr, yi])
         assert ((got - want).abs().max()
                 <= _tol(fe.kernel_s2d) * want.abs().max()).item()
+
+    @pytest.mark.parametrize("kind,msps", DECISION_RATES)
+    def test_candidates_equal_the_plain_bf16_conv(self, cuda_device, kind,
+                                                  msps):
+        """Beyond K = 1600, where the route is held to _tol only, its
+        decisions on the planted rows equal those of the same frontend
+        with the plain bf16 conv: validity, positions, frame bits and CRC
+        verdicts, with a CRC-ok candidate on every planted row."""
+        fe, x, want = _planted_frontend(kind, msps, cuda_device)
+        x = torch.as_tensor(x, device=cuda_device)
+        before = k1.LAUNCHES["s2d_conv_bf16"]
+        got = fe(x)
+        torch.cuda.synchronize()
+        assert k1.LAUNCHES["s2d_conv_bf16"] == before + 1
+        out = k1.s2d_conv_plain(x, fe.kernel_s2d, fe.gc, fe.L, fe.decim,
+                                bf16=True)
+        c = out.shape[0] // 2
+        plain = fe.candidates(*fe.demod(out[:c], out[c:]))
+        fields = ("cand_valid", "cand_pos", "frame_bits", "crc_ok")
+        a = {f: getattr(got, f).cpu().numpy() for f in fields}
+        b = {f: getattr(plain, f).cpu().numpy() for f in fields}
+        for row in want:
+            va, vb = a["cand_valid"][row], b["cand_valid"][row]
+            np.testing.assert_array_equal(va, vb)
+            for f in fields[1:]:
+                np.testing.assert_array_equal(a[f][row][va], b[f][row][vb])
+            assert (a["crc_ok"][row] & va).any()

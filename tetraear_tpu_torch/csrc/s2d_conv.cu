@@ -58,10 +58,10 @@ s2d_conv_kernel(const float* __restrict__ xf, long long n_floats,
   float* w_sh = smem + w_off;   // [tps * ich][kRows]
   const long long w0 = static_cast<long long>(blockIdx.x) * kTileW;
   const int row0 = blockIdx.y * kRows;
-  load_window<false>(xf, n_floats, w0 * ich - pad_floats, kTileW + lp - 1,
-                     ich, xs, x_sh);
+  load_window(xf, n_floats, w0 * ich - pad_floats, kTileW + lp - 1, ich, xs,
+              x_sh);
   Acc acc;
-  conv_tile<false>(x_sh, w_sh, k_taps, c2, ich, lp, xs, tps, row0, acc);
+  conv_tile(x_sh, w_sh, k_taps, c2, ich, lp, xs, tps, row0, acc);
   store_tile(acc, out, c2, w0, row0, fold, m_out);
 }
 

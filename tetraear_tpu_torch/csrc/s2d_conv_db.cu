@@ -124,7 +124,7 @@ s2d_conv_db_kernel(const float* __restrict__ xf, long long n_floats,
       x_sh[(idx - m * ich) * xs + m] = src[idx];
     }
     Acc acc;
-    conv_tile<false>(x_sh, w_sh, k_taps, c2, ich, lp, xs, tps, row0, acc);
+    conv_tile(x_sh, w_sh, k_taps, c2, ich, lp, xs, tps, row0, acc);
     store_tile(acc, out, c2, static_cast<long long>(t) * kTileW, row0, 1,
                m_out);
   }

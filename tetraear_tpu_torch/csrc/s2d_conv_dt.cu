@@ -1,9 +1,11 @@
-// K4 on Hopper: the composite space-to-depth ("s2d") conv in the
-// reference's direct-tap form.
+// K4 on Hopper, f32 operands: the composite space-to-depth ("s2d") conv
+// in the reference's direct-tap form.
 //
 // Replaces tetraear_tpu/ops/pallas/s2d_conv.py:_kernel_direct (entry
-// point pallas_s2d_conv_dt_wk, variants "dt" and "dt_bf16" of
-// pallas_s2d_conv).  Same contraction as K1:
+// point pallas_s2d_conv_dt_wk, variant "dt" of pallas_s2d_conv; the
+// "dt_bf16" variant runs on the tensor cores in s2d_conv_tc.cu, whose
+// implicit GEMM sums in this same tap-major order).  Same contraction as
+// K1:
 //
 //     out[c, w] = sum_{a < Lp} sum_{i < 2D} K2[c, i, a] * X2[w + a, i]
 //
@@ -25,9 +27,7 @@
 //
 // The window of a tile, 2D x (256 + Lp - 1) floats, must fit one block's
 // shared memory; the wrapper refuses an input-channel count that does
-// not (ops/kernels/s2d_conv.py:check_dt).  dt_bf16: the window is
-// rounded to bf16 as it is staged (s2d_tile.cuh:load_window) and the
-// wrapper rounds the weights; products and sums stay f32.
+// not (ops/kernels/s2d_conv.py:check_dt).
 //
 // C interface (ctypes): tetra_s2d_conv_dt launches on the given stream
 // and returns cudaGetLastError() (0 on success); it allocates nothing.
@@ -38,7 +38,6 @@ namespace {
 
 using namespace s2d;
 
-template <bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 s2d_conv_dt_kernel(const float* __restrict__ xf, long long n_floats,
                    const float* __restrict__ k_taps, float* __restrict__ out,
@@ -47,8 +46,8 @@ s2d_conv_dt_kernel(const float* __restrict__ xf, long long n_floats,
   extern __shared__ __align__(16) float x_sh[];   // [ich][xs]
   const long long w0 = static_cast<long long>(blockIdx.x) * kTileW;
   const int row0 = blockIdx.y * kRows;
-  load_window<kBf16>(xf, n_floats, w0 * ich - pad_floats, kTileW + lp - 1,
-                     ich, xs, x_sh);
+  load_window(xf, n_floats, w0 * ich - pad_floats, kTileW + lp - 1, ich, xs,
+              x_sh);
   __syncthreads();
 
   const int tm = threadIdx.x % kPosThreads;
@@ -84,23 +83,6 @@ s2d_conv_dt_kernel(const float* __restrict__ xf, long long n_floats,
   store_tile(acc, out, c2, w0, row0, 1, m_out);
 }
 
-template <bool kBf16>
-cudaError_t launch(const float* xf, long long n_floats, const float* k_taps,
-                   float* out, int c2, int ich, int lp, long long pad_floats,
-                   long long m_out, int c2p, cudaStream_t stream) {
-  const int xs = (kTileW + lp - 1) | 1;        // odd stride: fewer conflicts
-  const size_t smem = sizeof(float) * static_cast<size_t>(ich) * xs;
-  cudaError_t err = cudaFuncSetAttribute(
-      s2d_conv_dt_kernel<kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>((m_out + kTileW - 1) / kTileW),
-                  static_cast<unsigned>((c2 + kRows - 1) / kRows));
-  s2d_conv_dt_kernel<kBf16><<<grid, kThreads, smem, stream>>>(
-      xf, n_floats, k_taps, out, c2, c2p, ich, lp, pad_floats, m_out, xs);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // k_taps: (Lp, ich, c2p) f32, c2p = c2 rounded up to a multiple of 32;
@@ -108,13 +90,17 @@ cudaError_t launch(const float* xf, long long n_floats, const float* k_taps,
 extern "C" int tetra_s2d_conv_dt(const float* xf, long long n_floats,
                                  const float* k_taps, float* out, int c2,
                                  int ich, int lp, long long pad_floats,
-                                 long long m_out, int c2p, int bf16,
-                                 void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      bf16 ? launch<true>(xf, n_floats, k_taps, out, c2, ich, lp, pad_floats,
-                          m_out, c2p, s)
-           : launch<false>(xf, n_floats, k_taps, out, c2, ich, lp,
-                           pad_floats, m_out, c2p, s);
-  return static_cast<int>(err);
+                                 long long m_out, int c2p, void* stream) {
+  const int xs = (kTileW + lp - 1) | 1;        // odd stride: fewer conflicts
+  const size_t smem = sizeof(float) * static_cast<size_t>(ich) * xs;
+  cudaError_t err = cudaFuncSetAttribute(
+      s2d_conv_dt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>((m_out + kTileW - 1) / kTileW),
+                  static_cast<unsigned>((c2 + kRows - 1) / kRows));
+  s2d_conv_dt_kernel<<<grid, kThreads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      xf, n_floats, k_taps, out, c2, c2p, ich, lp, pad_floats, m_out, xs);
+  return static_cast<int>(cudaGetLastError());
 }

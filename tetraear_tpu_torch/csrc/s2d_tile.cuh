@@ -23,7 +23,6 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace s2d {
@@ -53,18 +52,8 @@ __host__ __device__ inline int taps_per_stage(int ich, int lp) {
   return t < 1 ? 1 : (t > kMaxTapsPerStage ? kMaxTapsPerStage : (int)t);
 }
 
-template <bool kBf16>
-__device__ __forceinline__ float operand(float v) {
-  if constexpr (kBf16) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  } else {
-    return v;
-  }
-}
-
 // The tile's window straight from device memory, transposed as it is
 // stored: x_sh[i * xs + m] = s[q0 + m * ich + i] (0 outside the input).
-template <bool kBf16>
 __device__ __forceinline__ void load_window(const float* __restrict__ xf,
                                             long long n_floats, long long q0,
                                             int win, int ich, int xs,
@@ -72,7 +61,7 @@ __device__ __forceinline__ void load_window(const float* __restrict__ xf,
   for (int idx = threadIdx.x; idx < win * ich; idx += kThreads) {
     const long long q = q0 + idx;
     float v = 0.f;
-    if (q >= 0 && q < n_floats) v = operand<kBf16>(__ldg(xf + q));
+    if (q >= 0 && q < n_floats) v = __ldg(xf + q);
     const int m = idx / ich;
     x_sh[(idx - m * ich) * xs + m] = v;
   }
@@ -80,7 +69,6 @@ __device__ __forceinline__ void load_window(const float* __restrict__ xf,
 
 // acc[j][r] = out[row0 + tn * 8 + r, w0 + tm + 64 j] for the window in
 // x_sh.  Starts with a barrier, so the window may be written just before.
-template <bool kBf16>
 __device__ __forceinline__ void conv_tile(const float* x_sh, float* w_sh,
                                           const float* __restrict__ k_taps,
                                           int c2, int ich, int lp, int xs,
@@ -103,8 +91,7 @@ __device__ __forceinline__ void conv_tile(const float* x_sh, float* w_sh,
       const int ti = idx / kRows;    // t * ich + i
       const int c = row0 + r;
       float v = 0.f;
-      if (c < c2) v = operand<kBf16>(
-          __ldg(k_stage + static_cast<long long>(ti) * c2 + c));
+      if (c < c2) v = __ldg(k_stage + static_cast<long long>(ti) * c2 + c);
       w_sh[idx] = v;
     }
     __syncthreads();

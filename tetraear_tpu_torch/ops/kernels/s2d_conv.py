@@ -20,15 +20,19 @@ channel pair in block row order [re.., im..].
          cp.async; source `csrc/s2d_conv_db.cu`.  f32 only.
   K4     `s2d_conv_dt`: replaces `_kernel_direct` (entry point
          `pallas_s2d_conv_dt_wk`, variants "dt" / "dt_bf16"): the
-         direct-tap form, per-tap weights read straight from memory into
-         one running sum per output; source `csrc/s2d_conv_dt.cu`.
+         direct-tap form, which sums tap-major (k = a * 2D + i).  f32:
+         per-tap weights read straight from memory into one running sum
+         per output, source `csrc/s2d_conv_dt.cu`; bf16: the tensor-core
+         implicit GEMM of `csrc/s2d_conv_tc.cu`, which contracts in that
+         same order, on the weights unfolded (`tc_pack_dt`).
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version for CPU tensors; there is no other fallback.  `LAUNCHES` counts
 each kernel's launches under its wrapper's name, the tensor-core routes
-as "s2d_conv_bf16" and "s2d_conv_of_bf16".  `tc_pack` lays the weights
-out for the tensor-core kernel; a frontend packs once and passes them
-in (`tc=`), an op-level call packs per call.
+as "s2d_conv_bf16", "s2d_conv_of_bf16" and "s2d_conv_dt_bf16".
+`tc_pack` lays the weights out for the tensor-core kernel; a frontend
+or caller packs once and passes them in (`tc=`), an op-level call packs
+per call.
 `pallas_s2d_conv` is the op-level drop-in of the reference's function of
 that name.
 """
@@ -47,7 +51,8 @@ from tetraear_tpu_torch.ops.fir import conv1d_f32
 
 # launches of K1, K1-of, K3 and K4, by wrapper name
 LAUNCHES = {"s2d_conv": 0, "s2d_conv_of": 0, "s2d_conv_bf16": 0,
-            "s2d_conv_of_bf16": 0, "s2d_conv_db": 0, "s2d_conv_dt": 0}
+            "s2d_conv_of_bf16": 0, "s2d_conv_db": 0, "s2d_conv_dt": 0,
+            "s2d_conv_dt_bf16": 0}
 
 MAX_FOLD_CHANNELS = 128   # 2D * fold bound of the reference's K1-of
 TILE_W = 256              # output positions of a K1 / K4 tile (s2d_tile.cuh)
@@ -118,7 +123,7 @@ def s2d_conv_of_plain(x: torch.Tensor, kernel_of: torch.Tensor, gc: int,
 
 
 # trailing int arguments of each source's C function, after m_out
-_EXTRA_INTS = {"s2d_conv": 1, "s2d_conv_db": 0, "s2d_conv_dt": 2,
+_EXTRA_INTS = {"s2d_conv": 1, "s2d_conv_db": 0, "s2d_conv_dt": 1,
                "s2d_conv_tc": 5}
 
 
@@ -417,10 +422,20 @@ def s2d_conv_db(x: torch.Tensor, kernel_s2d: torch.Tensor, gc: int, L: int,
                    L, decim, c2)
 
 
+def tc_pack_dt(kernel_s2d: torch.Tensor) -> TcWeights:
+    """K4's bf16 weights (C2, 2D, Lp) packed for the tensor-core kernel
+    unfolded, in its own tap-major order: N = C2 kernel rows in blocks of
+    `tc_config`'s (at the 16-carrier frontend's C2 = 32 one block of 64
+    rows, half of them zero: on the H100 faster than a block of 32)."""
+    return tc_pack(kernel_s2d, 1)
+
+
 def check_dt(ich: int, lp: int) -> None:
-    """K4 keeps one tile's window, ich x (256 + Lp - 1) floats, in shared
-    memory: refuse an input-channel count whose window does not fit (the
-    reference fails on the same shapes with an opaque pad error)."""
+    """K4's f32 route keeps one tile's window, ich x (256 + Lp - 1)
+    floats, in shared memory: refuse an input-channel count whose window
+    does not fit (the reference fails on the same shapes with an opaque
+    pad error).  The bf16 route streams weights that do not fit a block
+    and takes these shapes."""
     need = 4 * ich * ((TILE_W + lp - 1) | 1)
     if need > MAX_SMEM_BYTES:
         raise ValueError(
@@ -430,23 +445,29 @@ def check_dt(ich: int, lp: int) -> None:
 
 
 def s2d_conv_dt(x: torch.Tensor, kernel_s2d: torch.Tensor, gc: int, L: int,
-                decim: int, *, bf16: bool = False) -> torch.Tensor:
-    """K4: K1's contraction in the direct-tap form, one running f32 sum
-    per output over the per-tap weights K2[:, :, a].  x (N,) complex64 +
-    s2d kernel (C2, 2D, Lp) f32 -> (C2, ceil(N/D)) f32; bf16=True: bf16
-    operands, f32 accumulation.  Plain version: `s2d_conv_plain`."""
+                decim: int, *, bf16: bool = False,
+                tc: TcWeights | None = None) -> torch.Tensor:
+    """K4: K1's contraction in the direct-tap form, summed tap-major.  x
+    (N,) complex64 + s2d kernel (C2, 2D, Lp) f32 -> (C2, ceil(N/D)) f32.
+    f32: one running f32 sum per output over the per-tap weights
+    K2[:, :, a] on the CUDA cores.  bf16=True: bf16 operands, f32
+    accumulation, on the tensor cores (counted as s2d_conv_dt_bf16), with
+    `tc` = tc_pack_dt(kernel_s2d) where the caller holds it.  Plain
+    version: `s2d_conv_plain`."""
     c2, ich, lp = kernel_s2d.shape
-    check_dt(ich, lp)
+    if not bf16:
+        check_dt(ich, lp)
     if x.device.type == "cpu" and kernel_s2d.device.type == "cpu":
         return s2d_conv_plain(x, kernel_s2d, gc, L, decim, bf16=bf16)
     _check("s2d_conv_dt", x, kernel_s2d, gc, L, decim, lp)
-    wkd = kernel_s2d.permute(2, 0, 1)          # (Lp, C2, 2D), the reference's
     if bf16:
-        wkd = wkd.to(torch.bfloat16).float()
+        return _launch_tc("s2d_conv_dt_bf16", x,
+                          tc or tc_pack_dt(kernel_s2d), gc, L, decim)
     c2p = -(-c2 // 32) * 32                    # whole row groups of 32
-    k_taps = F.pad(wkd.transpose(1, 2), (0, c2p - c2)).contiguous()
+    # (Lp, 2D, C2) tap-major, the reference's wkd (Lp, C2, 2D) transposed
+    k_taps = F.pad(kernel_s2d.permute(2, 1, 0), (0, c2p - c2)).contiguous()
     return _launch("s2d_conv_dt", "s2d_conv_dt", x, k_taps, c2, ich, lp, gc,
-                   L, decim, c2, c2p, int(bf16))
+                   L, decim, c2, c2p)
 
 
 def parse_fold(name: str, prefix: str) -> tuple:

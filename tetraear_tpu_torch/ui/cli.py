@@ -2,7 +2,7 @@
 
     python -m tetraear_tpu_torch decode <iq>
         [--profile ref-compat|ref-exact|etsi] [--key-file keys.txt]
-        [-o out.jsonl] [--chunk-size S] [--device cuda|cpu]
+        [-o out.jsonl] [--chunk-size S] [--device cuda|cpu] [-v]
     python -m tetraear_tpu_torch decode <iq> --carriers N [--pfb]
         [--conv auto|s2d|s2d_of|pallas|pallas_bf16] ...
 
@@ -18,13 +18,16 @@ the reference's [READABLE]/[DONE]/[PERF]/[STATS] lines (single carrier)
 or [DONE]/[PERF]/[CARRIERS] lines (wideband).  The device is explicit:
 `--device` or, by default, cuda when a card is present and cpu
 otherwise, printed as [DEVICE]; there is no fallback from one to the
-other.  `--conv auto` resolves as the reference's does: on the CPU the
-staged chain (with --pfb the gather-form filterbank), on a card s2d.
+other.  `--conv` defaults to `auto`, as in the reference, and resolves
+as the reference's does: on the CPU the staged chain (with --pfb the
+gather-form filterbank), on a card s2d.  `main` sets up the reference's
+per-run log files (`ui.logging_setup`; -v puts DEBUG on the console).
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
 import time
 from pathlib import Path
 
@@ -304,7 +307,7 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--carriers", type=int, default=0,
                    help="decode N carriers of the 25 kHz grid instead of "
                         "the single-carrier path")
-    d.add_argument("--conv", choices=CLI_CONVS, default="pallas_bf16",
+    d.add_argument("--conv", choices=CLI_CONVS, default="auto",
                    help="(with --carriers) channelizer: auto = the staged "
                         "chain on the CPU (gather-form filterbank with "
                         "--pfb), s2d on a card; " + "; ".join(
@@ -320,10 +323,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "every 25 kHz channel in the band (96 at 2.4 MS/s)")
     d.add_argument("--afc", action="store_true", help="not ported yet")
     d.add_argument("-o", "--out-jsonl", type=str, default=None)
+    d.add_argument("-v", "--verbose", action="store_true")
     d.set_defaults(func=cmd_decode)
     return p
 
 
 def main(argv=None) -> int:
+    from tetraear_tpu_torch.ui.logging_setup import get_log_dir, setup_logging
     args = build_parser().parse_args(argv)
+    setup_logging(verbose=getattr(args, "verbose", False))
+    logging.getLogger(__name__).info("Logging to: %s", get_log_dir())
     return args.func(args)

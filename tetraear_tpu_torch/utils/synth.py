@@ -296,10 +296,14 @@ def planted(carriers: dict, sample_rate_hz: float = 2.4e6,
             num_frames: int = 4) -> np.ndarray:
     """Golden-slot TETRA streams mixed to their offsets: `carriers` maps
     offset_hz -> (stream seed, SDS text payload).  Each carries
-    `num_frames` MAC-RESOURCE slots at 130 samples per symbol — the recipe
-    of the reference's tests/unit/test_fused_frontend.py:
-    TestDecisionEquivalence._wideband and test_pfb.py:TestPfbFrontend."""
+    `num_frames` MAC-RESOURCE slots at 13 samples per symbol after the
+    receivers' decimation (130 at 2.4 MS/s) — the recipe of the
+    reference's tests/unit/test_fused_frontend.py:
+    TestDecisionEquivalence._wideband and test_pfb.py:TestPfbFrontend,
+    which this is at 2.4 MS/s."""
+    from tetraear_tpu_torch.config import ReceiverConfig
     fs = sample_rate_hz
+    per_symbol = 13 * ReceiverConfig(sample_rate_hz=fs).decimation_factor
     x = None
     for off, (seed, payload) in carriers.items():
         st = make_stream_bits(num_frames=num_frames, lead_bits=64,
@@ -307,7 +311,7 @@ def planted(carriers: dict, sample_rate_hz: float = 2.4e6,
                                  payload=payload.encode()[:20])
         ph = synthesize_symbol_phasors(bits_to_symbols(st),
                                           mapping="ref")
-        iq = upsample_hold(ph, fs, fs / 130.0)
+        iq = upsample_hold(ph, fs, fs / per_symbol)
         if x is None:
             x = np.zeros(len(iq), np.complex64)
         t = np.arange(len(x)) / fs
