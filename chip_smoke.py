@@ -58,6 +58,20 @@ Phases (each prints its results; the first failure exits nonzero):
               (full band) and 20 MS/s (16 carriers, K = 12782), give the
               candidates (positions, frames, CRC verdicts) that the same
               frontend gives with the plain bf16 conv
+  4b. downlink the ETSI downlink, survey and uplink through the CLI, each
+              path with the launch counts set to 0 just before and read
+              just after: `downlink --simulate --slots 72` (one multiframe,
+              frame 18 included; every planted SCH/F text, the SDS-TL
+              text, the group call's CMCE PDUs and the cell identity
+              decoded, every row equal to the same command's with
+              --device cpu); `downlink FILE --survey 16` on three cells
+              planted on carriers 3, 8 and 12 of carrier_grid(16) (each
+              identity on its carrier, every CRC passed), then
+              `MulticarrierDownlinkReceiver(16)` on the same capture (each
+              cell's text; every carrier's decisions equal those made from
+              K5's plain version), which must launch K5; `uplink
+              --simulate` with and without --continuous (every burst's
+              CMCE / SDS decoded, rows equal to --device cpu's)
   5. single   the single-carrier receiver and the etsi link on the card,
               plain PyTorch (no kernel of the table; the launch counts
               are set to 0 before each path and read after it): the
@@ -85,7 +99,12 @@ Phases (each prints its results; the first failure exits nonzero):
               end; then each single-carrier
               profile's block demodulator on one 262,144-sample chunk, its
               busy share, the IIR's two filtfilts alone, the host decoder
-              on one chunk and the SCH/F Viterbi decode of 1 and 16 blocks
+              on one chunk and the SCH/F Viterbi decode of 1 and 16 blocks;
+              then per capture, with its device busy share:
+              DownlinkReceiver.receive on one multiframe and its parts,
+              one SCH/F group's channel decode, the survey (K5 + etsi
+              tail + host walk) at 2.45 M and 8,319,936 samples, and the
+              two uplink monitors
 
 The line before the last is a JSON object with each kernel's route,
 source, launches in phases 4 and 5, error, times and bound; the last
@@ -1109,6 +1128,263 @@ def phase_timing_staged(device, card: str, t: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# The ETSI downlink, the cell survey and the uplink monitors
+# ---------------------------------------------------------------------------
+
+DL_SLOTS = 72                # one multiframe: 18 frames x 4 slots, ~1.02 s
+DL_MESSAGE = "CHIP SDS"
+CELLS = (3, 8, 12)           # grid indices of carrier_grid(16) with a cell
+
+
+def _cli_out(argv: list) -> tuple:
+    """The port's CLI on argv with -o into a temporary file: (exit code,
+    its stdout lines, the JSONL rows)."""
+    import contextlib
+    import io
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "out.jsonl"
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = _cli([*argv, "-o", str(out)])
+        rows = ([json.loads(line) for line in out.read_text().splitlines()]
+                if out.exists() else [])
+    return rc, buf.getvalue().splitlines(), rows
+
+
+def _dl_check(tag: str, cond: bool, msg: str) -> None:
+    print(f"[downlink] {tag}: {msg}: {'ok' if cond else 'FAIL'}")
+    if not cond:
+        fail("downlink", f"{tag}: {msg}")
+
+
+def _downlink_cli_run() -> None:
+    """`downlink --simulate --slots 72` on the card and, as the plain
+    version, the same command with --device cpu: every planted SDS text,
+    the SDS-TL text, the group call's CMCE PDUs and the cell identity
+    decoded, and every row (CRC verdicts included) equal."""
+    argv = ["downlink", "--simulate", "--slots", str(DL_SLOTS),
+            "--message", DL_MESSAGE]
+    rc, lines, rows = _cli_out(argv)
+    rc_cpu, _, rows_cpu = _cli_out([*argv, "--device", "cpu"])
+    tag = f"cli downlink --simulate --slots {DL_SLOTS}"
+    print(f"[downlink] {tag}: exit {rc} (cpu {rc_cpu}), {len(rows)} slots, "
+          f"{sum(r['crc_ok'] is True for r in rows)} CRC-pass; "
+          + "; ".join(line for line in lines
+                      if line.startswith(("[VOICE]", "[DONE]", "[SIM]"))))
+    _dl_check(tag, rc == 0 == rc_cpu, "both runs exit 0")
+    sds = {r["sds"] for r in rows}
+    want = [f"[TXT] {DL_MESSAGE} #{k}" for k in range(1, DL_SLOTS - 1, 4)]
+    missing = [w for w in want if w not in sds]
+    _dl_check(tag, not missing, f"{len(want)} planted SCH/F texts decoded"
+              + (f" (missing {missing})" if missing else ""))
+    layer3 = " | ".join(" ; ".join(r["layer3"] or []) for r in rows)
+    for pdu in ("DSetup: call 41", "DTxGranted: call 41",
+                f"text '{DL_MESSAGE} via SDS-TL'", "DRelease: call 41"):
+        _dl_check(tag, pdu in layer3, f"layer 3 {pdu!r} decoded")
+    _dl_check(tag, any(r["mcc"] == 262 and r["mnc"] == 1001 for r in rows),
+              "cell MCC 262 MNC 1001 acquired")
+    _dl_check(tag, {r["fn"] for r in rows} == set(range(1, 19)),
+              "all 18 frames of the multiframe, frame 18 included")
+    _dl_check(tag, rows == rows_cpu,
+              "rows (CRC verdicts, AACH, layer 3, calls) equal the "
+              "--device cpu run's")
+
+
+def _survey_plain(x, device) -> list:
+    """MulticarrierDownlinkReceiver's decode with K5's plain version
+    (mix_to_baseband + fir_decimate) on the card in its place: per
+    carrier, the decoded frames."""
+    import torch
+    from tetraear_tpu_torch.models.downlink import (
+        MulticarrierDownlinkReceiver)
+    from tetraear_tpu_torch.ops import dqpsk, resample, timing
+    from tetraear_tpu_torch.ops.kernels.fused_channelize import (
+        fused_channelize_plain)
+    rx = MulticarrierDownlinkReceiver(16, device=device)
+    cfg = rx.cfg
+    chans = fused_channelize_plain(torch.as_tensor(x, device=device),
+                                   rx._offsets_dev, cfg.sample_rate_hz,
+                                   cfg.decimation_factor, rx._taps_d)
+    z = resample.rational_resample(chans, 3, 10, rx._taps_r)
+    ts = timing.best_phase_pick(z, cfg.etsi_sps, step=1)
+    soft = dqpsk.demodulate_soft(ts.symbols).soft_bits.cpu().numpy()
+    counts = ts.count.cpu().numpy()
+    return [rx._cells[c].receive_soft(soft[c, :counts[c] - 1].reshape(-1))
+            if counts[c] >= 2 else [] for c in range(16)]
+
+
+def _frame_decisions(frames) -> list:
+    return [(f.slot_index, f.tn, f.fn, f.mn, f.channel, f.crc_ok,
+             f.aach.downlink_usage, f.sds_message) for f in frames]
+
+
+def _survey_run(device) -> None:
+    """`downlink FILE --survey 16` on three cells planted on carriers
+    CELLS of carrier_grid(16), one multiframe long: each cell's identity
+    reported on its carrier and no other cell; then
+    MulticarrierDownlinkReceiver on the same capture (K5): each cell's
+    text, and every carrier's decisions equal those made from K5's
+    plain version."""
+    import numpy as np
+    from tetraear_tpu_torch.models.downlink import (
+        MulticarrierDownlinkReceiver)
+    from tetraear_tpu_torch.utils.synth import planted_cells
+    x, want = planted_cells(CELLS, slots=DL_SLOTS)
+    tag = f"cli downlink --survey 16 ({len(x)} samples)"
+    with tempfile.TemporaryDirectory() as tmp:
+        iq = Path(tmp) / "cells.cf32"
+        np.asarray(x, np.complex64).tofile(iq)
+        rc, lines, _ = _cli_out(["downlink", str(iq), "--survey", "16"])
+    cells = [line for line in lines if line.startswith("carrier")]
+    for line in cells + [ln for ln in lines if ln.startswith("[DONE]")]:
+        print(f"[downlink]   {line}")
+    _dl_check(tag, rc == 0 and len(cells) == len(want),
+              f"exit 0, {len(want)} cells reported")
+    for k, (mcc, mnc, cc_, _) in want.items():
+        hit = any(line.startswith(f"carrier {k:3d}")
+                  and f"MCC={mcc} MNC={mnc} CC={cc_}" in line
+                  and "crc=100%" in line for line in cells)
+        _dl_check(tag, hit, f"carrier {k}: MCC={mcc} MNC={mnc} CC={cc_}, "
+                            "every CRC passed")
+    per = MulticarrierDownlinkReceiver(16, device=device).receive(x)
+    plain = _survey_plain(x, device)
+    tag = "MulticarrierDownlinkReceiver(16) (K5)"
+    for k, (_, _, _, text) in want.items():
+        _dl_check(tag, text in {f.sds_message for f in per[k]},
+                  f"carrier {k}: {text!r} decoded")
+    same = all(_frame_decisions(a) == _frame_decisions(b)
+               for a, b in zip(per, plain))
+    _dl_check(tag, same, "every carrier's slots, CRC verdicts, AACH and "
+                         "texts equal those from K5's plain version")
+
+
+def _uplink_cli_run() -> None:
+    """`uplink --simulate` with and without --continuous on the card and
+    with --device cpu: every burst's CMCE / SDS decoded, rows equal."""
+    for extra in ([], ["--continuous"]):
+        argv = ["uplink", "--simulate", *extra]
+        rc, lines, rows = _cli_out(argv)
+        rc_cpu, _, rows_cpu = _cli_out([*argv, "--device", "cpu"])
+        tag = "cli " + " ".join(argv)
+        print(f"[downlink] {tag}: exit {rc} (cpu {rc_cpu}), {len(rows)} "
+              "bursts; " + "; ".join(
+                  line for line in lines
+                  if line.startswith(("bit", "[VOICE]", "[SIM]"))))
+        _dl_check(tag, rc == 0 == rc_cpu, "both runs exit 0")
+        text = " | ".join(" ; ".join(r["layer3"] or []) + f" {r['sds']}"
+                          for r in rows)
+        for item in ("LEGACY UPLINK SDS", "USdsData: called SSI 42",
+                     "USetup: called SSI 9000", "uplink report 7"):
+            _dl_check(tag, item in text, f"{item!r} decoded")
+        _dl_check(tag, rows == rows_cpu,
+                  "rows (CRC verdicts, layer 3) equal the --device cpu run's")
+
+
+def phase_downlink(device) -> dict:
+    """The ETSI downlink, the 16-carrier survey (K5) and both uplink
+    monitors through the CLI, each with the launch counts set to 0 just
+    before and read just after; the survey must launch K5."""
+    launches = dict.fromkeys(KERNELS, 0)
+    for tag, wrapper, run in (
+            ("cli downlink --simulate (one multiframe)", None,
+             _downlink_cli_run),
+            ("cli downlink --survey 16 + MulticarrierDownlinkReceiver",
+             "fused_channelize", lambda: _survey_run(device)),
+            ("cli uplink --simulate [--continuous]", None,
+             _uplink_cli_run)):
+        for name, n in _path(tag, wrapper, run).items():
+            launches[name] += n
+    return launches
+
+
+def phase_timing_downlink(device, card: str) -> None:
+    """Per capture: DownlinkReceiver.receive on the one-multiframe
+    capture and its parts (the etsi demodulator, the batched slot decode,
+    one SCH/F group's channel decode), the survey at 2.45 M and at the
+    bench's 8,319,936 samples, and the uplink monitors, each with its
+    device busy share (host clock around a synchronized call)."""
+    import numpy as np
+    import torch
+    from tetraear_tpu_torch.models.downlink import (
+        DownlinkConfig, DownlinkReceiver, DownlinkTransmitter,
+        MulticarrierDownlinkReceiver, survey_cells)
+    from tetraear_tpu_torch.models.uplink import (UplinkMonitor,
+                                                  UplinkSlotMonitor,
+                                                  UplinkTransmitter)
+    from tetraear_tpu_torch.ops import channel_coding as cc
+    from tetraear_tpu_torch.utils.synth import (make_mac_block_bits,
+                                                planted_cells)
+
+    def host_ms(fn, iters: int = 3) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / iters * 1e3
+
+    def report(tag: str, fn, n: int, iters: int = 3) -> float:
+        ms = host_ms(fn, iters)
+        busy_ms, top = _device_busy_ms(fn, iters=1)
+        busy = ("not measured" if busy_ms is None else
+                f"{busy_ms:.3f} ms ({busy_ms / ms:.1%}); top "
+                + ", ".join(f"{k[:36]} {v:.3f}" for k, v in top[:3]))
+        print(f"[timing] {card}: {tag} (n={n}) {ms:.3f} ms per capture = "
+              f"{n / (ms / 1e3):,.0f} samples/s; device busy {busy}")
+        return ms
+
+    tx = DownlinkTransmitter(DownlinkConfig())
+    pay = {k: make_mac_block_bits(b"TIMING %d" % k, seed=k)
+           for k in range(1, DL_SLOTS, 4)}
+    iq = tx.modulate(tx.stream_bits(DL_SLOTS, payloads=pay), snr_db=25.0,
+                     seed=1)
+    rx = DownlinkReceiver(device=device)
+    report(f"DownlinkReceiver.receive, {DL_SLOTS} slots", lambda:
+           rx.receive(iq), len(iq))
+    x = torch.as_tensor(iq, device=device)
+    res = rx.rx(x, 0.0)
+    soft = res.soft_bits[:int(res.count) - 1].reshape(-1).cpu().numpy()
+    report("  its etsi demodulator (EtsiReceiver)", lambda: rx.rx(x, 0.0),
+           len(iq), 5)
+    report("  its host walk + batched slot decode (receive_soft)",
+           lambda: rx.receive_soft(soft), len(iq))
+    for blocks in (18, 36):
+        llrs = torch.as_tensor(np.random.default_rng(0).standard_normal(
+            (blocks, 432)).astype(np.float32), device=device)
+        ms = host_ms(lambda: cc.decode_channel_soft(llrs, "SCH/F", 17), 3)
+        print(f"[timing] {card}:   one SCH/F group's channel decode "
+              f"({blocks} blocks, Viterbi over 288 steps) {ms:.3f} ms")
+    xs, _ = planted_cells(CELLS, slots=DL_SLOTS)
+    report("survey_cells, 16 carriers (K5)", lambda: survey_cells(
+        xs, 16, device=device), len(xs))
+    mc = MulticarrierDownlinkReceiver(16, device=device)
+    xd = torch.as_tensor(xs, device=device)
+    report("  its device front (K5 + etsi tail, 16 carriers)",
+           lambda: mc.demodulate(xd), len(xs), 5)
+    reps = -(-BENCH_N // len(xs))
+    xb = np.tile(xs, reps)[:BENCH_N]
+    report("survey_cells, 16 carriers (K5), bench block", lambda:
+           survey_cells(xb, 16, device=device), BENCH_N, 2)
+    xbd = torch.as_tensor(xb, device=device)
+    report("  its device front (K5 + etsi tail), bench block",
+           lambda: mc.demodulate(xbd), BENCH_N, 3)
+    del xd, xbd
+    ecc = (262 << 20) | (1001 << 6) | 17
+    utx = UplinkTransmitter(ecc)
+    bursts = [utx.nub_bits(make_mac_block_bits(b"UL %d" % k, seed=k))
+              for k in range(8)]
+    iq_ul = utx.transmit(bursts, snr_db=22.0, seed=2)
+    report("UplinkMonitor.receive, 8 bursts", lambda: UplinkMonitor(
+        ecc, device=device).receive(iq_ul), len(iq_ul))
+    iq_sl = utx.transmit_slots({2 * k + 1: b for k, b in enumerate(bursts)},
+                               18, lead_bits=120, snr_db=22.0, seed=2)
+    report("UplinkSlotMonitor.receive, 18 slots", lambda: UplinkSlotMonitor(
+        ecc, device=device).receive(iq_sl), len(iq_sl))
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # The single-carrier receiver and the etsi link (plain PyTorch on the card)
 # ---------------------------------------------------------------------------
 
@@ -1348,13 +1624,18 @@ def main() -> int:
     t3 = time.perf_counter()
     for name, n in phase_single(device).items():
         launches[name] += n
+    for name, n in phase_downlink(device).items():
+        launches[name] += n
     t4 = time.perf_counter()
     t = phase_timing(device, card)
     t5 = time.perf_counter()
     phase_timing_single(device, card)
+    t6 = time.perf_counter()
+    phase_timing_downlink(device, card)
     print(f"[timing] phases: build {t1 - t0:.1f} s, kernel {t2 - t1:.1f} s, "
-          f"decode {t3 - t2:.1f} s, single {t4 - t3:.1f} s, timing "
-          f"{t5 - t4:.1f} s, single timing {time.perf_counter() - t5:.1f} s")
+          f"decode {t3 - t2:.1f} s, single + downlink {t4 - t3:.1f} s, "
+          f"timing {t5 - t4:.1f} s, single timing {t6 - t5:.1f} s, "
+          f"downlink timing {time.perf_counter() - t6:.1f} s")
     times = {"s2d_conv": "k1_f32", "s2d_conv_bf16": "k1_bf16",
              "s2d_conv_of": "k1of_f32", "s2d_conv_of_bf16": "k1of_bf16",
              "s2d_conv_db": "k3", "s2d_conv_dt": "k4_f32",

@@ -84,7 +84,8 @@ def test_chunks_keep_decoding(planted, tmp_path):
     iq, want = planted
     out = tmp_path / "chunks.jsonl"
     assert cli.main(["decode", str(iq), "--carriers", "16", "--conv",
-                     "pallas", "--chunk-size", "70000", "-o", str(out)]) == 0
+                     "pallas", "--chunk-size", "70000", "--device", "cpu",
+                     "-o", str(out)]) == 0
     got = _texts(out)
     assert any(want[k] in got.get(k, set()) for k in want)
 
@@ -111,11 +112,63 @@ def test_pfb_decode_finds_planted_texts_on_fftfreq_channels(tmp_path,
 
 @pytest.mark.parametrize("argv,msg", [
     (["--carriers", "16", "--pfb", "--conv", "s2d_of"], "16-carrier variant"),
-    (["--carriers", "16", "--afc"], "not ported yet"),
 ])
 def test_refuses_what_is_not_ported(planted, argv, msg):
     with pytest.raises(SystemExit, match=msg):
-        cli.main(["decode", str(planted[0]), *argv])
+        cli.main(["decode", str(planted[0]), *argv, "--device", "cpu"])
+
+
+def test_afc_decode_equals_jax_cli(tmp_path, capsys):
+    """`decode --carriers 3 --afc --device cpu` on a capture whose whole
+    25 kHz grid (carrier_grid(3): -25, 0, +25 kHz) sits 1.7 kHz off: read
+    in two chunks, the grid-comb AFC prints the reference's [AFC] lines
+    (the first estimate, then the EMA's, the same to the Hz) and the
+    frames JSONL equals the JAX package's own `decode --carriers 3 --afc`
+    on the same file byte for byte; read in one chunk, every planted text
+    comes back on its carrier."""
+    import numpy as np
+    from tetraear_tpu_torch.utils.synth import planted_wideband
+    x, want = planted_wideband((0, 1, 2), num_carriers=3)
+    t = np.arange(len(x)) / 2.4e6
+    x = (x * np.exp(2j * np.pi * 1700.0 * t)).astype(np.complex64)
+    iq = tmp_path / "offset.cf32"
+    save_iq(iq, x)
+    argv = ["--carriers", "3", "--afc", "--chunk-size",
+            str(len(x) // 2 + 1)]
+    out = tmp_path / "port.jsonl"
+    assert cli.main(["decode", str(iq), *argv, "--device", "cpu", "-o",
+                     str(out)]) == 0
+    mine = [line for line in capsys.readouterr().out.splitlines()
+            if line.startswith("[AFC]")]
+    ref = tmp_path / "jax.jsonl"
+    assert jax_cli.main(["decode", str(iq), *argv, "-o", str(ref)]) == 0
+    theirs = [line for line in capsys.readouterr().out.splitlines()
+              if line.startswith("[AFC]")]
+    assert mine == theirs and len(mine) == 2
+    assert out.read_text() == ref.read_text()
+    assert cli.main(["decode", str(iq), "--carriers", "3", "--afc",
+                     "--device", "cpu", "-o", str(out)]) == 0
+    est = [line for line in capsys.readouterr().out.splitlines()
+           if line.startswith("[AFC]")]
+    assert len(est) == 1 and abs(float(est[0].split()[3]) - 1700.0) < 600.0
+    got = _texts(out)
+    for k, text in want.items():
+        assert text in got.get(k, set()), (k, got)
+
+
+def test_decode_without_device_refuses_on_a_cpu_box(planted, capsys):
+    """With no card, `decode` (and `downlink`, `uplink`) without --device
+    runs nowhere: it exits naming --device cpu, and picks no device for
+    the caller."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    for argv in (["decode", str(planted[0])],
+                 ["decode", str(planted[0]), "--carriers", "16"],
+                 ["downlink", "--simulate"], ["uplink", "--simulate"]):
+        with pytest.raises(SystemExit, match="--device cpu"):
+            cli.main(argv)
+    assert "[DEVICE]" not in capsys.readouterr().out
+    assert cli.build_parser().parse_args(["decode", "x"]).device == "cuda"
 
 
 @pytest.mark.parametrize("profile,chunk", [

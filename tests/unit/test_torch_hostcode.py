@@ -60,9 +60,12 @@ def _guarded(code: str, timeout: int = 600) -> str:
 
 def test_port_imports_and_decodes_with_the_reference_refused(tmp_path):
     """With jax and tetraear_tpu refused by an import hook: every module
-    of the port imports, and `python -m tetraear_tpu_torch decode ...
-    --device cpu` decodes a planted single-carrier capture and a planted
-    16-carrier capture (--conv s2d), each finding its text."""
+    of the port imports (the downlink, the uplink and their host copies
+    among them), `python -m tetraear_tpu_torch decode ... --device cpu`
+    decodes a planted single-carrier capture and a planted 16-carrier
+    capture (--conv s2d), each finding its text, and `downlink
+    --simulate` and `uplink --simulate --continuous` decode their
+    planted SDS texts and CMCE signalling."""
     x1, text1 = tsynth.planted_single("ref-compat")
     x16, want16 = tsynth.planted_wideband((3, 8))
     single, wide = tmp_path / "single.cf32", tmp_path / "wide.cf32"
@@ -76,6 +79,19 @@ names = [m.name for m in pkgutil.walk_packages(tetraear_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 print("imported", len(names))
+for name in ("models.downlink", "models.uplink", "ops.rm3014",
+             "ops.spectrum", "protocol.bursts", "protocol.layer3",
+             "protocol.mac", "protocol.mle", "protocol.mm", "protocol.pdus",
+             "protocol.cmce", "protocol.sds_tl", "core.calls",
+             "audio.blocks", "audio.voice"):
+    assert "tetraear_tpu_torch." + name in names, name
+
+def run(*argv):
+    sys.argv = ["tetraear_tpu_torch", *argv]
+    try:
+        runpy.run_module("tetraear_tpu_torch", run_name="__main__")
+    except SystemExit as e:
+        assert not e.code, e.code
 
 def decode(iq, out, *extra):
     sys.argv = ["tetraear_tpu_torch", "decode", iq, "--device", "cpu",
@@ -94,12 +110,22 @@ frames = decode({str(wide)!r}, {str(tmp_path / "w.jsonl")!r},
 got = {{(f["carrier"], f.get("sds_message")) for f in frames}}
 for k, text in {want16!r}.items():
     assert (k, text) in got, (k, got)
+dl, ul = {str(tmp_path / "dl.jsonl")!r}, {str(tmp_path / "ul.jsonl")!r}
+run("downlink", "--simulate", "--device", "cpu", "-o", dl)
+with open(dl) as f:
+    rows = [json.loads(line) for line in f]
+assert "[TXT] DOWNLINK SDS #1" in [r["sds"] for r in rows], rows
+assert any("DSetup: call 41" in " ".join(r["layer3"] or []) for r in rows)
+run("uplink", "--simulate", "--continuous", "--device", "cpu", "-o", ul)
+with open(ul) as f:
+    layer3 = [json.loads(line)["layer3"] for line in f]
+assert any("uplink report 7" in " ".join(x or []) for x in layer3), layer3
 bad = [m for m in sys.modules if m.partition(".")[0] in REFUSED]
 assert not bad, bad
 print("decoded")
 ''')
     assert "decoded" in out
-    assert int(out.split("imported ")[1].split()[0]) >= 40
+    assert int(out.split("imported ")[1].split()[0]) >= 55
 
 
 def _names_reference(node) -> list:
@@ -421,3 +447,240 @@ def test_logging_setup_routes_like_the_reference(tmp_path, monkeypatch,
         monkeypatch.setenv(var, str(tmp_path / var))
     for fn in ("get_log_dir", "get_user_data_dir", "get_records_dir"):
         assert getattr(tlog, fn)() == getattr(jlog, fn)()
+
+
+# --- the downlink / uplink host copies -------------------------------------
+
+def _pkgs():
+    """The reference's and the port's host modules of the downlink and
+    uplink, as two namespaces with the same names."""
+    import types
+    out = {}
+    for name, root in (("ref", "tetraear_tpu"), ("port", "tetraear_tpu_torch")):
+        import importlib
+        mods = {m.rpartition(".")[2]: importlib.import_module(f"{root}.{m}")
+                for m in ("protocol.bursts", "protocol.cmce",
+                          "protocol.layer3", "protocol.mac", "protocol.mle",
+                          "protocol.mm", "protocol.pdus", "protocol.sds_tl",
+                          "core.calls", "audio.blocks", "audio.voice")}
+        out[name] = types.SimpleNamespace(**mods)
+    return out["ref"], out["port"]
+
+
+def _plain(obj):
+    """Dataclasses, arrays and containers as plain comparable values, with
+    a class's name in place of the class (the two packages' classes
+    differ)."""
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return (type(obj).__name__,
+                {f.name: _plain(getattr(obj, f.name))
+                 for f in dataclasses.fields(obj)})
+    if isinstance(obj, np.ndarray):
+        return ("array", obj.dtype.str, obj.tolist())
+    if isinstance(obj, dict):
+        return {k: _plain(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_plain(v) for v in obj]
+    if isinstance(obj, np.generic):
+        return obj.item()
+    return obj
+
+
+def _l3_pdus(p) -> list:
+    """Every CMCE / MM PDU class of the package with its default fields,
+    and the downlink / uplink simulations' own PDUs, as (pd, pdu,
+    uplink)."""
+    A = p.cmce.Address
+    pdus = [(p.mle.PD.CMCE, cls(), False)
+            for cls in p.cmce._DOWNLINK_REGISTRY.values()]
+    pdus += [(p.mle.PD.CMCE, cls(), True)
+             for cls in p.cmce._UPLINK_REGISTRY.values()]
+    pdus += [(p.mle.PD.MM, cls(), False) for cls in p.mm._REGISTRY.values()]
+    text = p.sds_tl.build_text_transfer("PARITY via SDS-TL")
+    pdus += [
+        (p.mle.PD.CMCE, p.cmce.DSetup(call_identifier=41, call_priority=5,
+                                      transmission_grant=1,
+                                      calling_party=A(1, 0x457)), False),
+        (p.mle.PD.CMCE, p.cmce.DTxGranted(
+            call_identifier=41, transmission_grant=1,
+            transmitting_party=A(1, 0x457)), False),
+        (p.mle.PD.CMCE, p.cmce.DSdsData(calling_party=A(1, 0x457),
+                                        short_data_type=3,
+                                        data_bits=text), False),
+        (p.mle.PD.CMCE, p.cmce.DRelease(call_identifier=41,
+                                        disconnect_cause=2), False),
+        (p.mle.PD.CMCE, p.cmce.USetup(basic_service_info=0, call_priority=5,
+                                      called_party=A(1, 0x2328)), True),
+        (p.mle.PD.CMCE, p.cmce.USdsData(called_party=A(0, 0x2A),
+                                        short_data_type=0,
+                                        user_data=0xBEEF), True),
+        (p.mle.PD.MM, p.mm.DLocationUpdateAccept(
+            location_update_accept_type=2, ssi=808), False)]
+    grp = p.mm.DAttachDetachGroupIdentity(group_identity_ack_request=1)
+    grp.set_groups([p.mm.GroupIdentity(gssi=9001, attach=True, lifetime=2),
+                    p.mm.GroupIdentity(gssi=9002, attach=False,
+                                       detach_reason=1)])
+    pdus.append((p.mle.PD.MM, grp, False))
+    nb = p.mle.DNwrkBroadcast(
+        cell_reselect_parameters=0xABCD, cell_load_ca=2,
+        neighbours=[p.mle.NeighbourCell(cell_identifier=3, main_carrier=3610,
+                                        la_flag=1, location_area=77),
+                    p.mle.NeighbourCell(cell_identifier=4, main_carrier=3620,
+                                        extended_flag=1, frequency_band=4)])
+    pdus.append((p.mle.PD.MLE, nb, False))
+    return pdus
+
+
+def test_layer3_copies_build_and_route_like_the_reference():
+    """Every CMCE and MM PDU type, the simulations' PDUs, MM group
+    attachment and MLE D-NWRK-BROADCAST: the port's copies build the
+    reference's bits, wrap them into the same MAC-RESOURCE / MAC-ACCESS /
+    MAC-DATA blocks (fragmented across MAC-FRAG / MAC-END where long), and
+    route them back through layer3 to the same results and descriptions."""
+    ref, port = _pkgs()
+    pairs = list(zip(_l3_pdus(ref), _l3_pdus(port)))
+    assert len(pairs) > 30
+    for (pd, a, up), (pd2, b, up2) in pairs:
+        assert (pd, up) == (pd2, up2) and type(a).__name__ == type(b).__name__
+        np.testing.assert_array_equal(a.build(), b.build())
+        tm_a, tm_b = ref.mle.wrap_mle(pd, a.build()), port.mle.wrap_mle(
+            pd, b.build())
+        np.testing.assert_array_equal(tm_a, tm_b)
+        if up:
+            blocks = []
+            for cls, addr, k1, ch in (("MacAccess", 0xABCD, 92, "SCH/HU"),
+                                      ("MacUplinkData", 0x777, 268,
+                                       "SCH/F")):
+                built = []
+                for pkg, tm in ((ref, tm_a), (port, tm_b)):
+                    try:
+                        built.append(getattr(pkg.mac, cls)(
+                            address=addr, tm_sdu=tm).build(k1))
+                    except AssertionError:      # the PDU exceeds the block
+                        built.append(None)
+                assert (built[0] is None) == (built[1] is None)
+                if built[0] is not None:
+                    blocks.append((*built, ch))
+            assert blocks
+            for ba, bb, ch in blocks:
+                np.testing.assert_array_equal(ba, bb)
+                ra = ref.layer3.decode_uplink_block(ba, ch)
+                rb = port.layer3.decode_uplink_block(bb, ch)
+                assert _plain(ra) == _plain(rb)
+                assert ([ref.layer3.describe_pdu(r) for r in ra]
+                        == [port.layer3.describe_pdu(r) for r in rb])
+            continue
+        fa = [blk for _, blk in ref.mac.fragment_tm_sdu(
+            tm_a, 268, ref.mac.MacResource(address=0x2328))]
+        fb = [blk for _, blk in port.mac.fragment_tm_sdu(
+            tm_b, 268, port.mac.MacResource(address=0x2328))]
+        assert len(fa) == len(fb)
+        da, db = ref.layer3.Defragmenter(), port.layer3.Defragmenter()
+        for ba, bb in zip(fa, fb):
+            np.testing.assert_array_equal(ba, bb)
+            ra, rb = (ref.layer3.decode_mac_block(ba),
+                      port.layer3.decode_mac_block(bb))
+            assert _plain(ra) == _plain(rb)
+            assert ([ref.layer3.describe_pdu(r) for r in ra]
+                    == [port.layer3.describe_pdu(r) for r in rb])
+            for x, y in zip(ra, rb):
+                if x.fragment:
+                    assert _plain(da.feed(x)) == _plain(db.feed(y))
+
+
+def test_burst_and_pdu_copies_equal_the_reference():
+    """The burst builders, slicers and field maps, and the SYNC / SYSINFO
+    / ACCESS-ASSIGN PDUs, on seeded bits."""
+    ref, port = _pkgs()
+    r = np.random.default_rng(5)
+    for name in ("STS", "NTS1", "NTS2", "ETS", "SB_FIELDS", "NDB_FIELDS",
+                 "NUB_FIELDS", "CB_FIELDS", "MIDAMBLE_POS", "NUB_BITS",
+                 "CB_BITS"):
+        assert _plain(getattr(ref.bursts, name)) == _plain(
+            getattr(port.bursts, name)), name
+    bits = lambda n: r.integers(0, 2, n).astype(np.uint8)  # noqa: E731
+    for _ in range(4):
+        args = {"ndb": (bits(216), bits(30), bits(216)),
+                "sb": (bits(120), bits(30), bits(216)),
+                "nub": (bits(216), bits(216)), "cb": (bits(168),)}
+        for kind, a in args.items():
+            for training in ((1, 2) if kind in ("ndb", "nub") else (None,)):
+                kw = {} if training is None else {"training": training}
+                x = getattr(ref.bursts, f"build_{kind}")(*a, **kw)
+                y = getattr(port.bursts, f"build_{kind}")(*a, **kw)
+                np.testing.assert_array_equal(x, y)
+                if kind in ("ndb", "sb"):
+                    assert (ref.bursts.classify_burst(x)
+                            == port.bursts.classify_burst(y))
+                    assert (_plain(ref.bursts.slice_burst(x)._asdict())
+                            == _plain(port.bursts.slice_burst(y)._asdict()))
+                else:
+                    sl = f"slice_{kind}"
+                    assert (_plain(getattr(ref.bursts, sl)(x))
+                            == _plain(getattr(port.bursts, sl)(y)))
+    for cls, kw in (("SyncPDU", dict(colour_code=17, timeslot=2,
+                                     frame_number=18, multiframe_number=60,
+                                     mcc=262, mnc=1001)),
+                    ("SysinfoPDU", dict(main_carrier=3600, frequency_band=3,
+                                        location_area=999)),
+                    ("AccessAssignPDU", dict(header=3, field1=17,
+                                             field2=0))):
+        a, b = (getattr(ref.pdus, cls)(**kw), getattr(port.pdus, cls)(**kw))
+        np.testing.assert_array_equal(a.build(), b.build())
+        assert _plain(getattr(ref.pdus, cls).parse(a.build())) == _plain(
+            getattr(port.pdus, cls).parse(b.build()))
+    for _ in range(20):
+        b14 = bits(14)
+        a, b = (ref.pdus.AccessAssignPDU.parse(b14),
+                port.pdus.AccessAssignPDU.parse(b14))
+        assert _plain(a) == _plain(b) and a.downlink_usage == b.downlink_usage
+
+
+def test_call_tracker_copy_follows_the_reference():
+    """The call ledger through a group call's lifecycle, an SDS and a
+    second call: the same metadata after every PDU, the same ledger."""
+    ref, port = _pkgs()
+    ta, tb = ref.calls.CallTracker(), port.calls.CallTracker()
+    for (pd, a, up), (_, b, _) in zip(_l3_pdus(ref), _l3_pdus(port)):
+        if up or pd != ref.mle.PD.CMCE:
+            continue
+        ma = ta.update(a, mac_address=9000)
+        mb = tb.update(b, mac_address=9000)
+        assert _plain(ma) == _plain(mb)
+        for tn in (1, 2, 3, 4):
+            assert _plain(ta.call_for_tn(tn)) == _plain(tb.call_for_tn(tn))
+    assert _plain(ta.calls) == _plain(tb.calls)
+    assert _plain(ta.released) == _plain(tb.released)
+
+
+def test_codec_copies_build_into_build_codec_and_equal_the_reference():
+    """The port builds native/codec into build/codec/ (nothing written
+    into native/codec) and its encoder and decoder give the reference's
+    committed executables' bits and PCM on synthesized speech; the codec
+    block builders give the reference's bytes."""
+    ref, port = _pkgs()
+    before = sorted(p.name for p in (REPO / "native" / "codec").iterdir())
+    enc, jenc = port.voice.VoiceEncoder(), ref.voice.VoiceEncoder()
+    assert sorted(p.name for p in (REPO / "native" / "codec").iterdir()) \
+        == before
+    if not enc.working:
+        pytest.skip("no C compiler: the port's codec is not built")
+    assert enc.scoder_path.parent.parent == REPO / "build" / "codec"
+    speech = tsynth.make_test_speech(0.4, seed=3)
+    np.testing.assert_array_equal(enc.encode_pcm_bits(speech),
+                                  jenc.encode_pcm_bits(speech))
+    blocks = enc.encode_pcm(speech)
+    assert len(blocks) >= 5
+    np.testing.assert_array_equal(port.voice.VoiceProcessor().decode_stream(
+        blocks), ref.voice.VoiceProcessor().decode_stream(blocks))
+    r = np.random.default_rng(9)
+    llrs = np.clip(r.standard_normal(432), -1, 1).astype(np.float32)
+    hard = r.integers(0, 2, 432).astype(np.uint8)
+    assert (port.blocks.block_from_soft_llrs(llrs)
+            == ref.blocks.block_from_soft_llrs(llrs))
+    assert (port.blocks.block_from_hard_bits(hard)
+            == ref.blocks.block_from_hard_bits(hard))
+    for b in blocks[:3]:
+        assert port.blocks.validate_block(b) and ref.blocks.validate_block(b)
+        np.testing.assert_array_equal(port.blocks.bits_from_tet_block(b),
+                                      ref.blocks.bits_from_tet_block(b))

@@ -9,9 +9,10 @@ kernel, and the stride-D conv becomes a stride-1 conv over 2D input
 channels — is in that module's docstrings.  The conv itself is
 `ops.kernels.s2d_conv`: K1, K1-of, K3 and K4 and their plain F.conv1d
 versions.  `pfb_kernel` states the 96-channel full-band filterbank as the
-same kind of conv.  `fused_channelize` / `fused_channelize_ri` are the
-legacy `fused=True` form of the same operator: a stride-D F.conv1d of the
-(2C, 2, L) kernel, then the residual rotation at the decimated rate.
+same kind of conv, `ddc_kernel` the mixer and decimating FIR alone.
+`fused_channelize` / `fused_channelize_ri` are the legacy `fused=True`
+form of the same operator: a stride-D F.conv1d of the (2C, 2, L) kernel,
+then the residual rotation at the decimated rate.
 """
 
 from __future__ import annotations
@@ -69,6 +70,19 @@ def fused_kernel(offsets_hz: np.ndarray, sample_rate_hz: float,
     g2 = (channel_taps | 1) // 2            # design pads to odd
     gc = g2 * decim + g1
     kernel, rot = modulated_kernel(h, offsets_hz, sample_rate_hz)
+    return kernel, gc, rot
+
+
+def ddc_kernel(offsets_hz: np.ndarray, sample_rate_hz: float,
+               decim: int, taps_per_phase: int) -> tuple:
+    """Mixer + decimation FIR only (no channel FIR) as one dense conv
+    kernel: the etsi multicarrier downlink's channelizer front, the values
+    of ops/channelizer.channelize (on the card K5 computes that directly,
+    models/downlink.MulticarrierDownlinkReceiver).  Returns (kernel, gc,
+    rotation_cycles)."""
+    taps_d = fir.design_decimation_fir(decim, taps_per_phase)
+    gc = (taps_per_phase * decim + 1 - 1) // 2
+    kernel, rot = modulated_kernel(taps_d, offsets_hz, sample_rate_hz)
     return kernel, gc, rot
 
 

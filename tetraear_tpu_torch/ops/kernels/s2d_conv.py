@@ -21,8 +21,9 @@ channel pair in block row order [re.., im..].
   K4     `s2d_conv_dt`: replaces `_kernel_direct` (entry point
          `pallas_s2d_conv_dt_wk`, variants "dt" / "dt_bf16"): the
          direct-tap form, which sums tap-major (k = a * 2D + i).  f32:
-         per-tap weights read straight from memory into one running sum
-         per output, source `csrc/s2d_conv_dt.cu`; bf16: the tensor-core
+         one running sum per output over tap-major weight rows streamed
+         through shared memory by cp.async, source `csrc/s2d_conv_dt.cu`;
+         bf16: the tensor-core
          implicit GEMM of `csrc/s2d_conv_tc.cu`, which contracts in that
          same order, on the weights unfolded (`tc_pack_dt`).
 
@@ -432,16 +433,19 @@ def tc_pack_dt(kernel_s2d: torch.Tensor) -> TcWeights:
 
 def check_dt(ich: int, lp: int) -> None:
     """K4's f32 route keeps one tile's window, ich x (256 + Lp - 1)
-    floats, in shared memory: refuse an input-channel count whose window
-    does not fit (the reference fails on the same shapes with an opaque
-    pad error).  The bf16 route streams weights that do not fit a block
-    and takes these shapes."""
-    need = 4 * ich * ((TILE_W + lp - 1) | 1)
+    floats, and two weight stages of at least one tap-major row of 32
+    floats in shared memory: refuse an input-channel count whose window
+    leaves no room for them (the reference fails on the same shapes with
+    an opaque pad error).  The bf16 route streams weights that do not fit
+    a block and takes these shapes."""
+    window = 4 * ich * ((TILE_W + lp - 1) | 1)
+    need = (window + 15) // 16 * 16 + 2 * 4 * 32
     if need > MAX_SMEM_BYTES:
         raise ValueError(
             f"K4: the window of {ich} input channels (2D) x {TILE_W + lp - 1}"
-            f" positions is {need} bytes, over the {MAX_SMEM_BYTES} bytes of "
-            "shared memory of one block; use K1 (variant 'dma') here")
+            f" positions and two weight rows take {need} bytes, over the "
+            f"{MAX_SMEM_BYTES} bytes of shared memory of one block; use K1 "
+            "(variant 'dma') here")
 
 
 def s2d_conv_dt(x: torch.Tensor, kernel_s2d: torch.Tensor, gc: int, L: int,
@@ -450,7 +454,8 @@ def s2d_conv_dt(x: torch.Tensor, kernel_s2d: torch.Tensor, gc: int, L: int,
     """K4: K1's contraction in the direct-tap form, summed tap-major.  x
     (N,) complex64 + s2d kernel (C2, 2D, Lp) f32 -> (C2, ceil(N/D)) f32.
     f32: one running f32 sum per output over the per-tap weights
-    K2[:, :, a] on the CUDA cores.  bf16=True: bf16 operands, f32
+    K2[:, :, a] on the CUDA cores, the weights streamed through shared
+    memory.  bf16=True: bf16 operands, f32
     accumulation, on the tensor cores (counted as s2d_conv_dt_bf16), with
     `tc` = tc_pack_dt(kernel_s2d) where the caller holds it.  Plain
     version: `s2d_conv_plain`."""
@@ -465,6 +470,7 @@ def s2d_conv_dt(x: torch.Tensor, kernel_s2d: torch.Tensor, gc: int, L: int,
                           tc or tc_pack_dt(kernel_s2d), gc, L, decim)
     c2p = -(-c2 // 32) * 32                    # whole row groups of 32
     # (Lp, 2D, C2) tap-major, the reference's wkd (Lp, C2, 2D) transposed
+    # a fresh tensor: 16-byte aligned for the kernel's cp.async rows
     k_taps = F.pad(kernel_s2d.permute(2, 1, 0), (0, c2p - c2)).contiguous()
     return _launch("s2d_conv_dt", "s2d_conv_dt", x, k_taps, c2, ich, lp, gc,
                    L, decim, c2, c2p)

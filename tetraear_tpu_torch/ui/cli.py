@@ -1,27 +1,41 @@
-"""Command line of the port: `decode`, single-carrier or wideband.
+"""Command line of the port: `decode` (single-carrier or wideband),
+`downlink` and `uplink`.
 
     python -m tetraear_tpu_torch decode <iq>
         [--profile ref-compat|ref-exact|etsi] [--key-file keys.txt]
         [-o out.jsonl] [--chunk-size S] [--device cuda|cpu] [-v]
-    python -m tetraear_tpu_torch decode <iq> --carriers N [--pfb]
+    python -m tetraear_tpu_torch decode <iq> --carriers N [--pfb] [--afc]
         [--conv auto|s2d|s2d_of|pallas|pallas_bf16] ...
+    python -m tetraear_tpu_torch downlink [<iq>] [--simulate --slots N]
+        [--freq-offset HZ|auto] [--survey N] [--traffic-channel ...]
+        [--traffic-depth 1|4|8] [-o out.jsonl] [--voice-wav w.wav]
+    python -m tetraear_tpu_torch uplink [<iq>] [--simulate] [--continuous]
+        [--mcc M --mnc N --colour-code C] [--anchor TN:FN:MN] [-o ...]
 
-Mirrors `tetraear_tpu decode` (tetraear_tpu/ui/cli.py cmd_decode and
-_decode_multicarrier).  Without --carriers it runs the single-carrier
-receiver of --profile (`SignalProcessor.process_full`, then the host
-`TetraDecoder.decode`); with --carriers N, N carriers of the 25 kHz grid,
-or with --pfb every channel of the band (96 at 2.4 MS/s, a frame's
-`carrier` its fftfreq channel index).  Chunks are read with
-FileReplaySource, the last chunk zero-padded to full length, the device
-result of chunk i+1 queued before chunk i is decoded on the host, with
-the reference's [READABLE]/[DONE]/[PERF]/[STATS] lines (single carrier)
-or [DONE]/[PERF]/[CARRIERS] lines (wideband).  The device is explicit:
-`--device` or, by default, cuda when a card is present and cpu
-otherwise, printed as [DEVICE]; there is no fallback from one to the
-other.  `--conv` defaults to `auto`, as in the reference, and resolves
-as the reference's does: on the CPU the staged chain (with --pfb the
-gather-form filterbank), on a card s2d.  `main` sets up the reference's
-per-run log files (`ui.logging_setup`; -v puts DEBUG on the console).
+Mirrors the JAX package's `decode`, `downlink` and `uplink` commands
+(tetraear_tpu/ui/cli.py cmd_decode, _decode_multicarrier, cmd_downlink,
+cmd_uplink): the same options, printed lines and JSONL.  `decode`
+without --carriers runs the single-carrier receiver of --profile
+(`SignalProcessor.process_full`, then the host `TetraDecoder.decode`);
+with --carriers N, N carriers of the 25 kHz grid, or with --pfb every
+channel of the band (96 at 2.4 MS/s, a frame's `carrier` its fftfreq
+channel index); --afc estimates the grid's shared tuner offset per chunk
+(ops/spectrum.estimate_grid_offset_hz) and derotates before the
+channelizer.  Chunks are read with FileReplaySource, the last chunk
+zero-padded to full length, the device result of chunk i+1 queued before
+chunk i is decoded on the host.  `downlink` decodes an ETSI downlink
+(models/downlink.py; --survey N: every cell on N carriers, the
+channelizer K5 on a card), `uplink` the isolated-burst or, with
+--continuous, the slot-synchronous uplink monitor (models/uplink.py);
+--simulate synthesizes the capture first, as the reference does.
+
+Every command runs on `--device`, cuda unless the caller asks for the
+CPU with `--device cpu`; without a card a command refuses to run and
+says so.  There is no fallback from one device to the other.  `--conv`
+defaults to `auto`, as in the reference, and resolves as the reference's
+does: on the CPU the staged chain (with --pfb the gather-form
+filterbank), on a card s2d.  `main` sets up the reference's per-run log
+files (`ui.logging_setup`; -v puts DEBUG on the console).
 """
 
 from __future__ import annotations
@@ -42,10 +56,6 @@ from tetraear_tpu_torch.models.multicarrier import CONV_VARIANTS
 # frontends' constructors, as in the reference
 CLI_CONVS = ("auto",) + tuple(k for k, v in CONV_VARIANTS.items() if v.cli)
 
-_LATER = {"afc": "--afc (grid-comb AFC) is not ported yet: it needs "
-                 "ops/spectrum.py (ROADMAP.md Queue 1, Slice 6)"}
-
-
 def resolve_conv(conv: str, device: torch.device, pfb: bool) -> str:
     """`auto` -> the staged chain on the CPU ("gather" with --pfb), s2d on
     a card (tetraear_tpu/ui/cli.py:699, 709); any other name as given."""
@@ -56,12 +66,13 @@ def resolve_conv(conv: str, device: torch.device, pfb: bool) -> str:
     return "s2d"
 
 
-def _device(name: str | None) -> torch.device:
-    if name is None:
-        name = "cuda" if torch.cuda.is_available() else "cpu"
+def _device(name: str) -> torch.device:
+    """--device as a torch device: a CUDA device needs a card, and no
+    command picks the CPU unless asked (`--device cpu`)."""
     dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(f"--device {name}: no CUDA device is available")
+        raise SystemExit(f"--device {name}: no CUDA device is available; "
+                         "pass --device cpu to run on the CPU")
     return dev
 
 
@@ -101,9 +112,6 @@ def _device_name(dev: torch.device) -> str:
 def cmd_decode(args) -> int:
     from tetraear_tpu_torch.io.replay import FileReplaySource
 
-    for flag, msg in _LATER.items():
-        if getattr(args, flag):
-            raise SystemExit(msg)
     dev = _device(args.device)
     source = FileReplaySource(args.iq_file,
                               sample_rate=args.sample_rate * 1e6)
@@ -218,6 +226,7 @@ def _decode_multicarrier(args, source, dev: torch.device) -> int:
     from tetraear_tpu_torch.models.multicarrier import (
         MulticarrierDecoder, build_frontend)
     from tetraear_tpu_torch.ops.channelizer import carrier_grid
+    from tetraear_tpu_torch.ops.spectrum import estimate_grid_offset_hz
 
     conv = resolve_conv(args.conv, dev, args.pfb)
     if args.pfb and not CONV_VARIANTS[conv].pfb:
@@ -258,13 +267,30 @@ def _decode_multicarrier(args, source, dev: torch.device) -> int:
         # queue chunk i+1 on the device before host-decoding chunk i; the
         # device-to-host copies in dec.decode are the only sync points
         pending = None
+        afc_hz = 0.0
+        fs = args.sample_rate * 1e6
         while not source.exhausted:
             samples = source.read_samples(chunk)
             if len(samples) == 0:
                 break
             samples_total += len(samples)
+            if args.afc:
+                # grid-comb AFC: one shared tuner offset for every carrier,
+                # estimated on the real samples (before the tail padding)
+                est = estimate_grid_offset_hz(samples, fs, device=dev)
             if len(samples) < chunk:
                 samples = np.pad(samples, (0, chunk - len(samples)))
+            if args.afc:
+                # EMA-smoothed; the derotation restarts per chunk only
+                # when the estimate moves by more than 1 Hz
+                new = est if pending is None else 0.8 * afc_hz + 0.2 * est
+                if abs(new - afc_hz) > 1.0 or pending is None:
+                    afc_hz = new
+                    print(f"[AFC] grid offset {afc_hz:+.0f} Hz")
+                if abs(afc_hz) > 1.0:
+                    t = (start_index + np.arange(len(samples))) / fs
+                    samples = (samples * np.exp(-2j * np.pi * afc_hz * t)
+                               ).astype(np.complex64)
             res = mc(samples, start_index=start_index)
             start_index += chunk
             if pending is not None:
@@ -279,6 +305,368 @@ def _decode_multicarrier(args, source, dev: torch.device) -> int:
           f"through {args.carriers}-carrier demod+decode on {dev}")
     hot = {c: n for c, n in enumerate(per_carrier) if n}
     print(f"[CARRIERS] frames per carrier: {hot}")
+    return 0
+
+
+def _read_iq(args):
+    """The capture of a `downlink` / `uplink` run: the IQ file as
+    complex64, or None (with the reference's message) without one."""
+    import numpy as np
+    if not args.iq_file:
+        print("[FAIL] need an IQ file (or --simulate)")
+        return None
+    return np.fromfile(args.iq_file, dtype=np.complex64)
+
+
+def _simulate_downlink(args):
+    """The reference's `downlink --simulate` capture: SCH/F MAC blocks on
+    TN2, a group call's CMCE signalling with an SDS-TL text on TN4, TN3 a
+    traffic channel (real ACELP-coded speech for TCH/S where the codec
+    builds, random bits otherwise), 25 dB SNR by default."""
+    import numpy as np
+    from tetraear_tpu_torch.models.downlink import (DownlinkConfig,
+                                                    DownlinkTransmitter)
+    from tetraear_tpu_torch.ops.channel_coding import TCH_GEOMETRY
+    from tetraear_tpu_torch.protocol import cmce, sds_tl
+    from tetraear_tpu_torch.protocol.mac import ChannelAllocation
+    from tetraear_tpu_torch.utils.synth import make_mac_block_bits
+    cell = DownlinkConfig()
+    tx = DownlinkTransmitter(cell)
+    rng = np.random.default_rng(0)
+    # a 268-bit SCH/F block fits 29 payload bytes after the 35-bit header
+    payloads = {k: make_mac_block_bits(
+        f"{args.message} #{k}".encode()[:29], seed=k)
+        for k in range(args.slots) if k % 4 == 1}
+    # CMCE signalling on TN4: a group call's lifecycle and an SDS-TL text;
+    # the D-SETUP's channel allocation names TN3, where the traffic below
+    # rides, so that the receiver attributes the voice to call 41
+    group, talker = 0x2328, 0x457
+    alloc = ChannelAllocation(allocation_type=1, timeslots=0b0010,
+                              carrier_number=cell.main_carrier)
+    seq = [cmce.DSetup(call_identifier=41, call_priority=5,
+                       transmission_grant=1,
+                       calling_party=cmce.Address(1, talker)),
+           cmce.DTxGranted(call_identifier=41, transmission_grant=1,
+                           transmitting_party=cmce.Address(1, talker)),
+           cmce.DSdsData(calling_party=cmce.Address(1, talker),
+                         short_data_type=3,
+                         data_bits=sds_tl.build_text_transfer(
+                             f"{args.message} via SDS-TL")),
+           cmce.DTxCeased(call_identifier=41),
+           cmce.DRelease(call_identifier=41, disconnect_cause=2)]
+    slot = 3
+    for pdu in seq:
+        if slot >= args.slots:
+            break
+        kw = ({"channel_allocation": alloc}
+              if isinstance(pdu, cmce.DSetup) else {})
+        slot = tx.schedule_signalling(payloads, pdu, group, slot,
+                                      args.slots, **kw)
+    k1 = TCH_GEOMETRY[args.traffic_channel][0]
+    voc = None
+    if args.traffic_channel == "TCH/S":
+        # coded speech over the air: synthesized PCM through the codec
+        # built from native/codec, so that the received voice blocks
+        # decode to ACELP audio
+        from tetraear_tpu_torch.audio.voice import VoiceEncoder
+        from tetraear_tpu_torch.utils.synth import make_test_speech
+        venc = VoiceEncoder()
+        if venc.working:
+            n_blocks = max(1, args.slots // 4)
+            pcm = make_test_speech(n_blocks * 0.06 + 0.06)
+            voc = venc.encode_pcm_bits(pcm)[:n_blocks]
+            print(f"[SIM] TCH/S carries {len(voc)} blocks of real "
+                  "ACELP-coded speech (native/codec)")
+    if voc is None or len(voc) == 0:
+        voc = rng.integers(0, 2, (max(1, args.slots // 4), k1)
+                           ).astype(np.uint8)
+    bits = tx.stream_bits(args.slots, payloads=payloads,
+                          tch_streams={3: (args.traffic_channel, voc,
+                                           args.traffic_depth)})
+    return tx.modulate(bits, snr_db=args.snr_db, seed=1)
+
+
+def _downlink_record(f, describe_pdu) -> dict:
+    """One decoded slot as the reference CLI's JSONL line."""
+    import dataclasses
+    return {
+        "slot": f.slot_index, "tn": f.tn, "fn": f.fn, "mn": f.mn,
+        "burst": f.burst_kind, "channel": f.channel,
+        "crc_ok": None if f.crc_ok is None else bool(f.crc_ok),
+        "aach_usage": f.aach.downlink_usage,
+        "mcc": f.sync_pdu.mcc if f.sync_pdu else None,
+        "mnc": f.sync_pdu.mnc if f.sync_pdu else None,
+        "sds": f.sds_message,
+        "mac_data": (bytes(f.mac_pdu.data).hex()
+                     if f.mac_pdu is not None else None),
+        "layer3": ([describe_pdu(r) for r in f.layer3]
+                   if f.layer3 else None),
+        "call": (dataclasses.asdict(f.call_metadata)
+                 if f.call_metadata is not None else None),
+        "voice": f.voice_block is not None}
+
+
+def _downlink_line(f, describe_pdu) -> str:
+    """One decoded slot as the reference CLI prints it."""
+    desc = ""
+    if f.sync_pdu:
+        desc = (f"MCC={f.sync_pdu.mcc} MNC={f.sync_pdu.mnc} "
+                f"CC={f.sync_pdu.colour_code}")
+    if f.sysinfo:
+        desc += (f" LA={f.sysinfo.location_area} "
+                 f"carrier={f.sysinfo.main_carrier}")
+    if f.mac_pdu is not None:
+        desc = repr(bytes(f.mac_pdu.data))[1:]
+    if f.layer3:
+        desc = "; ".join(describe_pdu(r) for r in f.layer3)
+    if f.sds_message:
+        desc += f" {f.sds_message}"
+    if f.voice_block:
+        desc = f"voice block ({len(f.voice_block)} B)"
+        if f.call_metadata is not None:
+            desc += (f" [call {f.call_metadata.call_identifier} "
+                     f"tg {f.call_metadata.talkgroup_id}]")
+    crc = "-" if f.crc_ok is None else "Y" if f.crc_ok else "n"
+    return (f"TN{f.tn} FN{f.fn:2d} MN{f.mn:2d} {f.burst_kind:3s} "
+            f"{f.channel:11s} crc={crc} "
+            f"aach={f.aach.downlink_usage:14s} {desc}")
+
+
+def cmd_downlink(args) -> int:
+    """Full ETSI downlink decode on --device: blind cell acquisition
+    (BSCH), TDMA tracking, AACH, SCH/F signalling and TCH traffic
+    (models/downlink.py); --survey N reports every cell on N carriers.
+    With --simulate it synthesizes a downlink capture first."""
+    import json
+
+    import numpy as np
+    from tetraear_tpu_torch.models.downlink import DownlinkReceiver
+    from tetraear_tpu_torch.protocol.layer3 import describe_pdu
+
+    dev = _device(args.device)
+    print(f"[DEVICE] {dev} ({_device_name(dev)}), downlink")
+    if args.simulate:
+        iq = _simulate_downlink(args)
+        if args.iq_file:
+            iq.tofile(args.iq_file)
+            print(f"[SIM] wrote {len(iq)} samples -> {args.iq_file}")
+    else:
+        iq = _read_iq(args)
+        if iq is None:
+            return 1
+
+    if args.survey > 0:
+        from tetraear_tpu_torch.models.downlink import survey_cells
+        t0 = time.time()
+        cells = survey_cells(iq, num_carriers=args.survey, device=dev)
+        dt = time.time() - t0
+        for r in cells:
+            nb = (f" neighbours={','.join(map(str, r.neighbours))}"
+                  if r.neighbours else "")
+            print(f"carrier {r.carrier_index:3d} ({r.offset_hz/1e3:+7.1f} "
+                  f"kHz): MCC={r.mcc} MNC={r.mnc} CC={r.colour_code} "
+                  f"LA={r.location_area} slots={r.slots_decoded} "
+                  f"crc={100*r.crc_rate:.0f}%{nb}")
+        print(f"[DONE] {len(cells)} cells found across {args.survey} "
+              f"carriers  [{len(iq)/max(dt,1e-9)/1e6:.2f} MS/s]")
+        return 0
+
+    rx = DownlinkReceiver(traffic_channel=args.traffic_channel,
+                          traffic_depth=args.traffic_depth, device=dev)
+    offset = ("auto" if args.freq_offset == "auto"
+              else float(args.freq_offset))
+    t0 = time.time()
+    frames = rx.receive(iq, freq_offset=offset)
+    dt = time.time() - t0
+    if not frames:
+        print("[NO CELL] no decodable synchronization burst")
+        return 1
+
+    out = open(args.out_jsonl, "w") if args.out_jsonl else None
+    crc_pass = 0
+    voice_blocks = 0
+    try:
+        for f in frames:
+            crc_pass += bool(f.crc_ok)
+            voice_blocks += f.voice_block is not None
+            print(_downlink_line(f, describe_pdu))
+            if out:
+                out.write(json.dumps(_downlink_record(f, describe_pdu))
+                          + "\n")
+    finally:
+        if out:
+            out.close()
+    if out:
+        print(f"[OUT] {args.out_jsonl}")
+    if args.traffic_depth > 1:
+        # deep-interleaved data channels resolve per TN after the walk
+        for t in sorted({f.tn for f in frames if f.tch_llrs is not None}):
+            blocks = rx.decode_traffic_stream(frames, tn=t)
+            print(f"[TCH] TN{t}: {blocks.shape[0]} "
+                  f"{args.traffic_channel} blocks de-interleaved "
+                  f"(depth {args.traffic_depth})")
+
+    voice_seq = [f.voice_block for f in frames if f.voice_block]
+    if voice_seq:
+        # the received TCH/S blocks through the codec chain (cdecoder:
+        # de-interleave + Viterbi + CRC; sdecoder: ACELP synthesis), one
+        # invocation keeping the decoder state across blocks
+        from tetraear_tpu_torch.audio.voice import VoiceProcessor
+        vp = VoiceProcessor()
+        if vp.working:
+            audio = vp.decode_stream(voice_seq)
+            amp = float(np.abs(audio).max()) if audio.size else 0.0
+            print(f"[VOICE] {len(voice_seq)} blocks -> {audio.size} PCM "
+                  f"samples ({audio.size / 8000:.2f} s, peak {amp:.3f}) "
+                  "via ACELP synthesis")
+            if args.voice_wav and audio.size:
+                import wave
+                with wave.open(args.voice_wav, "wb") as w:
+                    w.setnchannels(1)
+                    w.setsampwidth(2)
+                    w.setframerate(8000)
+                    w.writeframes((np.clip(audio, -1, 1) * 32767
+                                   ).astype(np.int16).tobytes())
+                print(f"[VOICE] wrote {args.voice_wav}")
+        else:
+            print("[VOICE] codec binaries not found (no C compiler to "
+                  "build native/codec)")
+    rate = len(iq) / max(dt, 1e-9) / 1e6
+    print(f"[DONE] {len(frames)} slots, {crc_pass} CRC-pass, "
+          f"{voice_blocks} voice blocks  [{rate:.2f} MS/s]")
+    return 0
+
+
+def _simulate_uplink(args, ecc: int):
+    """The reference's `uplink --simulate` capture: a legacy-layout SDS
+    NUB, a MAC-ACCESS control burst and two CMCE NUBs; with --continuous
+    on the slot grid (signalling on odd slots, coded speech on TN3 where
+    the codec builds), else as isolated bursts."""
+    import numpy as np
+    from tetraear_tpu_torch.models.uplink import UplinkTransmitter
+    from tetraear_tpu_torch.protocol import cmce, sds_tl
+    from tetraear_tpu_torch.utils.synth import make_mac_block_bits
+    tx = UplinkTransmitter(ecc)
+    bursts_tx = [
+        tx.nub_bits(make_mac_block_bits(b"LEGACY UPLINK SDS", seed=1)),
+        tx.access_cb(cmce.USdsData(called_party=cmce.Address(0, 0x2A),
+                                   short_data_type=0,
+                                   user_data=0xBEEF), ssi=0xABCD),
+        tx.signalling_nub(cmce.USetup(
+            basic_service_info=0, call_priority=5,
+            called_party=cmce.Address(1, 0x2328)), ssi=0x777),
+        tx.signalling_nub(cmce.USdsData(
+            called_party=cmce.Address(1, 0x2328), short_data_type=3,
+            data_bits=sds_tl.build_text_transfer("uplink report 7")),
+            ssi=0x777),
+    ]
+    if not args.continuous:
+        return tx.transmit(bursts_tx, snr_db=args.snr_db, seed=2)
+    # slot-synchronous: signalling on odd slots and, where the codec
+    # builds, ACELP-coded speech on TN3 (anchor 1:1:1 -> TN = k % 4 + 1,
+    # slots 2, 6, 10, ...)
+    from tetraear_tpu_torch.audio.voice import VoiceEncoder
+    from tetraear_tpu_torch.ops import channel_coding as cc_ops
+    slot_map = {2 * i + 1: b for i, b in enumerate(bursts_tx)
+                if b.size <= 510}
+    n_slots = 2 * len(bursts_tx) + 2
+    venc = VoiceEncoder()
+    voice_slots = [k for k in range(n_slots) if k % 4 == 2]
+    if venc.working and voice_slots:
+        from tetraear_tpu_torch.utils.synth import make_test_speech
+        voc = venc.encode_pcm_bits(
+            make_test_speech(0.06 * len(voice_slots) + 0.06)
+        )[:len(voice_slots)]
+        t5 = cc_ops.encode_tch(voc, "TCH/S", ecc30=ecc)
+        for k, blk in zip(voice_slots, t5):
+            slot_map[k] = tx.traffic_nub(blk)
+        print(f"[SIM] TN3 carries {len(t5)} uplink TCH/S blocks "
+              "of real ACELP-coded speech")
+    return tx.transmit_slots(slot_map, n_slots, lead_bits=120,
+                             snr_db=args.snr_db, seed=2)
+
+
+def cmd_uplink(args) -> int:
+    """Uplink monitor on --device: NUB / CB located by midamble
+    correlation and decoded with the cell scrambling learned from the
+    downlink (models/uplink.py); --continuous locks the slot grid and
+    labels each burst with its TN/FN/MN.  With --simulate it synthesizes
+    the bursts first."""
+    import json
+
+    import numpy as np
+    from tetraear_tpu_torch.models.uplink import (UplinkMonitor,
+                                                  UplinkSlotMonitor)
+    from tetraear_tpu_torch.ops.scramble import extended_colour_code
+    from tetraear_tpu_torch.protocol.layer3 import describe_pdu
+
+    dev = _device(args.device)
+    print(f"[DEVICE] {dev} ({_device_name(dev)}), uplink")
+    ecc = extended_colour_code(args.mcc, args.mnc, args.colour_code)
+    if args.simulate:
+        iq = _simulate_uplink(args, ecc)
+        if args.iq_file:
+            iq.tofile(args.iq_file)
+            print(f"[SIM] wrote {len(iq)} samples -> {args.iq_file}")
+    else:
+        iq = _read_iq(args)
+        if iq is None:
+            return 1
+
+    t0 = time.time()
+    if args.continuous:
+        anchor = tuple(int(v) for v in args.anchor.split(":"))
+        frames = UplinkSlotMonitor(ecc, anchor=anchor,
+                                   traffic_tns={3: "TCH/S"},
+                                   device=dev).receive(iq)
+    else:
+        frames = UplinkMonitor(ecc, device=dev).receive(iq)
+    dt = time.time() - t0
+    out = open(args.out_jsonl, "w") if args.out_jsonl else None
+    try:
+        for f in frames:
+            desc = ""
+            if f.layer3:
+                desc = "; ".join(describe_pdu(r) for r in f.layer3)
+            elif f.mac_pdu is not None:
+                desc = repr(bytes(f.mac_pdu.data))[1:]
+            if f.sds_message and f.sds_message not in desc:
+                desc += f" {f.sds_message}"
+            crc = "-" if f.crc_ok is None else "Y" if f.crc_ok else "n"
+            grid = (f" TN{f.tn} FN{f.fn:2d} MN{f.mn:2d} slot {f.slot_index}"
+                    f"{' dt%+d' % f.timing_offset if f.timing_offset else ''}"
+                    if f.tn is not None else "")
+            print(f"bit {f.start_bit:7d} {f.kind:3s} {f.channel:7s} "
+                  f"crc={crc}{grid} {desc}")
+            if out:
+                out.write(json.dumps({
+                    "start_bit": f.start_bit, "kind": f.kind,
+                    "channel": f.channel,
+                    "crc_ok": None if f.crc_ok is None else bool(f.crc_ok),
+                    "sds": f.sds_message,
+                    "layer3": ([describe_pdu(r) for r in f.layer3]
+                               if f.layer3 else None),
+                    "mac_data": (bytes(f.mac_pdu.data).hex()
+                                 if f.mac_pdu is not None else None)})
+                    + "\n")
+    finally:
+        if out:
+            out.close()
+    if out:
+        print(f"[OUT] {args.out_jsonl}")
+    voice_seq = [f.voice_block for f in frames
+                 if getattr(f, "voice_block", None)]
+    if voice_seq:
+        from tetraear_tpu_torch.audio.voice import VoiceProcessor
+        vp = VoiceProcessor()
+        if vp.working:
+            audio = vp.decode_stream(voice_seq)
+            amp = float(np.abs(audio).max()) if audio.size else 0.0
+            print(f"[VOICE] {len(voice_seq)} uplink blocks -> "
+                  f"{audio.size} PCM samples ({audio.size / 8000:.2f} s, "
+                  f"peak {amp:.3f}) via ACELP synthesis")
+    print(f"[DONE] {len(frames)} uplink bursts "
+          f"[{len(iq)/max(dt,1e-9)/1e6:.2f} MS/s]")
     return 0
 
 
@@ -313,19 +701,76 @@ def build_parser() -> argparse.ArgumentParser:
                         "--pfb), s2d on a card; " + "; ".join(
                             f"{k} = {CONV_VARIANTS[k].runs}"
                             for k in CLI_CONVS[1:]))
-    d.add_argument("--device", type=str, default=None,
-                   help="torch device (default: cuda if available, "
-                        "else cpu)")
+    _add_device(d)
     d.add_argument("--no-bits", action="store_true",
                    help="omit raw bits from the JSONL")
     d.add_argument("--pfb", action="store_true",
                    help="(with --carriers) polyphase filterbank: decode "
                         "every 25 kHz channel in the band (96 at 2.4 MS/s)")
-    d.add_argument("--afc", action="store_true", help="not ported yet")
+    d.add_argument("--afc", action="store_true",
+                   help="(with --carriers) estimate the shared tuner offset "
+                        "of the 25 kHz channel grid from the folded "
+                        "spectrum and derotate before channelizing")
     d.add_argument("-o", "--out-jsonl", type=str, default=None)
     d.add_argument("-v", "--verbose", action="store_true")
     d.set_defaults(func=cmd_decode)
+
+    dl = sub.add_parser("downlink",
+                        help="full ETSI downlink decode (BSCH/AACH/TDMA)")
+    dl.add_argument("iq_file", type=str, nargs="?", default=None)
+    dl.add_argument("--simulate", action="store_true",
+                    help="synthesize a downlink capture and decode it")
+    dl.add_argument("--slots", type=int, default=16,
+                    help="slots to simulate")
+    dl.add_argument("--snr-db", type=float, default=25.0)
+    dl.add_argument("--message", type=str, default="DOWNLINK SDS")
+    dl.add_argument("--freq-offset", type=str, default="0",
+                    help="carrier offset in Hz, or 'auto' (spectral-"
+                         "centroid AFC)")
+    dl.add_argument("--survey", type=int, default=0, metavar="N",
+                    help="wideband cell survey over N 25 kHz carriers "
+                         "instead of single-cell decode")
+    dl.add_argument("--traffic-channel", type=str, default="TCH/S",
+                    choices=["TCH/S", "TCH/7.2", "TCH/4.8", "TCH/2.4"])
+    dl.add_argument("--traffic-depth", type=int, default=1,
+                    choices=[1, 4, 8])
+    dl.add_argument("-o", "--out-jsonl", type=str, default=None)
+    dl.add_argument("--voice-wav", type=str, default=None,
+                    help="write decoded TCH/S voice to a WAV file")
+    _add_device(dl)
+    dl.add_argument("-v", "--verbose", action="store_true")
+    dl.set_defaults(func=cmd_downlink)
+
+    ul = sub.add_parser("uplink",
+                        help="isolated uplink-burst monitor (NUB/CB)")
+    ul.add_argument("iq_file", type=str, nargs="?", default=None)
+    ul.add_argument("--simulate", action="store_true",
+                    help="synthesize uplink bursts and monitor them")
+    ul.add_argument("--snr-db", type=float, default=22.0)
+    ul.add_argument("--mcc", type=int, default=262)
+    ul.add_argument("--mnc", type=int, default=1001)
+    ul.add_argument("--colour-code", type=int, default=17,
+                    help="cell identity learned from the downlink BSCH "
+                         "(keys the uplink scrambling)")
+    ul.add_argument("--continuous", action="store_true",
+                    help="slot-synchronous monitor locked to the downlink "
+                         "TDMA clock (grid acquisition + timing recovery + "
+                         "TN/FN/MN labels)")
+    ul.add_argument("--anchor", type=str, default="1:1:1",
+                    help="(--continuous) TN:FN:MN of grid slot 0, as "
+                         "learned from the downlink")
+    ul.add_argument("-o", "--out-jsonl", type=str, default=None)
+    _add_device(ul)
+    ul.add_argument("-v", "--verbose", action="store_true")
+    ul.set_defaults(func=cmd_uplink)
     return p
+
+
+def _add_device(parser) -> None:
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device (default cuda; without a card "
+                             "the command refuses to run unless given "
+                             "--device cpu)")
 
 
 def main(argv=None) -> int:

@@ -381,3 +381,32 @@ def planted_single(profile: str = "ref-compat", payload: str = "HELLO HELLO",
     x = upsample_hold(ph, sample_rate_hz,
                          18000.0 if etsi else sample_rate_hz / 130.0)
     return x.astype(np.complex64), f"[TXT] {payload}"
+
+
+def planted_cells(grid_indices=(3, 8, 12), num_carriers: int = 16,
+                  slots: int = 72, sample_rate_hz: float = 2.4e6) -> tuple:
+    """A wideband capture of ETSI downlink cells (models/downlink.py) on
+    carriers `grid_indices` of carrier_grid(num_carriers): cell k has
+    MCC 262, MNC 100 + k, colour code 1 + k and SCH/F MAC blocks with the
+    text "CELL k MSG" on its TN2 slots, `slots` slots long (72: one
+    multiframe, ~1.02 s), each cell from its own stream seed, summed and
+    scaled by 1 / the number of cells.  Returns (x complex64,
+    {k: (mcc, mnc, colour code, "[TXT] CELL k MSG")})."""
+    from tetraear_tpu_torch.models.downlink import (DownlinkConfig,
+                                                    DownlinkTransmitter)
+    from tetraear_tpu_torch.ops.channelizer import carrier_grid
+    offsets = carrier_grid(num_carriers)
+    mix = None
+    want = {}
+    for k in grid_indices:
+        cfg = DownlinkConfig(mcc=262, mnc=100 + k, colour_code=1 + k)
+        tx = DownlinkTransmitter(cfg)
+        pay = {s: make_mac_block_bits(f"CELL {k} MSG".encode(), seed=s)
+               for s in range(1, slots, 4)}
+        iq = tx.modulate(tx.stream_bits(slots, payloads=pay),
+                         sample_rate=sample_rate_hz, seed=k)
+        t = np.arange(len(iq)) / sample_rate_hz
+        s = iq * np.exp(2j * np.pi * float(offsets[k]) * t)
+        mix = s if mix is None else mix[:len(s)] + s[:len(mix)]
+        want[k] = (cfg.mcc, cfg.mnc, cfg.colour_code, f"[TXT] CELL {k} MSG")
+    return (mix / len(want)).astype(np.complex64), want

@@ -10,8 +10,11 @@ every time beside the card's name and power limit.  --one times, with
 CUDA events over 20 launches after 3 warm-ups, at the bench block (n =
 8,319,936 samples of complex noise, 2.4 MS/s): K1 bf16 at C2 = 32 (the
 16-carrier frontend's weights, packed once) and on the full-band
-filterbank (C2 = 192), K4 dt_bf16 at C2 = 32 (packed once where the
-checkout packs K4), and K5 on carrier_grid(16) with the staged
+filterbank (C2 = 192), K1 f32 and K4 dt (f32) at C2 = 32 with cuDNN's
+f32 conv (TF32 off) of the same contraction, K4 dt on the filterbank at
+the ragged n = 1,000,007 (each K4 dt also as its error against the
+plain version, x max|plain|), K4 dt_bf16 at C2 = 32 (packed once where
+the checkout packs K4), and K5 on carrier_grid(16) with the staged
 frontend's taps at 2.4 MS/s (121) and at 8 MS/s (397 taps, D = 33, on
 the same samples); it prints one JSON line of milliseconds.  A checkout
 given by --ref needs only the port's package (e.g. a git archive of
@@ -27,6 +30,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 BENCH_N = 8_319_936
+RAGGED_N = 1_000_007
 
 
 def _time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -41,6 +45,10 @@ def _time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _rel_err(got, want) -> float:
+    return ((got - want).abs().max() / want.abs().max()).item()
 
 
 def one() -> dict:
@@ -64,11 +72,34 @@ def one() -> dict:
     tc = kc.tc_pack_k1(k2)
     t["k1_bf16"] = _time_ms(torch, lambda: kc.s2d_conv(
         x, k2, gc, L, decim, bf16=True, tc=tc))
+    # the f32 routes: K1, K4 dt at the bench shape and on the full-band
+    # filterbank at a ragged n, K4's error against its plain version
+    # (x max|plain|), and cuDNN's f32 conv of the same contraction
+    torch.backends.cudnn.allow_tf32 = False
+    t["k1_f32"] = _time_ms(torch, lambda: kc.s2d_conv(x, k2, gc, L, decim))
+    t["k4_dt"] = _time_ms(torch, lambda: kc.s2d_conv_dt(
+        x, k2, gc, L, decim))
+    t["k4_dt_err"] = _rel_err(kc.s2d_conv_dt(x, k2, gc, L, decim),
+                              kc.s2d_conv_plain(x, k2, gc, L, decim))
+    m_out = -(-BENCH_N // decim)
+    total = max((m_out + k2.shape[-1] - 1) * decim,
+                -(-(L - 1 - gc + BENCH_N) // decim) * decim)
+    xv = kc._x2_view(x, L - 1 - gc, total, decim).contiguous()
+    t["cudnn_f32"] = _time_ms(torch, lambda: torch.nn.functional.conv1d(
+        xv, k2))
+    del xv
     kw = {"tc": kc.tc_pack_dt(k2)} if hasattr(kc, "tc_pack_dt") else {}
     t["k4_dt_bf16"] = _time_ms(torch, lambda: kc.s2d_conv_dt(
         x, k2, gc, L, decim, bf16=True, **kw))
     pfb = PfbMulticarrierFrontend.from_config(device=dev, conv="s2d")
     tcp = kc.tc_pack_k1(pfb.kernel_s2d)
+    xr = x[:RAGGED_N]
+    kp = pfb.kernel_s2d
+    t["k4_dt_full_band_ragged"] = _time_ms(torch, lambda: kc.s2d_conv_dt(
+        xr, kp, 0, pfb.L, pfb.decim))
+    t["k4_dt_full_band_ragged_err"] = _rel_err(
+        kc.s2d_conv_dt(xr, kp, 0, pfb.L, pfb.decim),
+        kc.s2d_conv_plain(xr, kp, 0, pfb.L, pfb.decim))
     t["k1_bf16_full_band"] = _time_ms(torch, lambda: kc.s2d_conv(
         x, pfb.kernel_s2d, 0, pfb.L, pfb.decim, bf16=True, tc=tcp))
     state = staged_state(carrier_grid(16))
@@ -118,8 +149,11 @@ def main() -> int:
     for name in runs["this"][0]:
         ref = [r[name] for r in runs["ref"]]
         new = [r[name] for r in runs["this"]]
-        print(f"[ab] {card}: {name}: ref {' / '.join(f'{v:.4f}' for v in ref)}"
-              f" ms, this {' / '.join(f'{v:.4f}' for v in new)} ms")
+        fmt, unit = ((".3e", " x max|plain|") if name.endswith("_err")
+                     else (".4f", " ms"))
+        print(f"[ab] {card}: {name}: ref "
+              f"{' / '.join(format(v, fmt) for v in ref)}{unit}, this "
+              f"{' / '.join(format(v, fmt) for v in new)}{unit}")
     return 0
 
 
