@@ -33,7 +33,10 @@ Phases (each prints its results; the first failure exits nonzero):
               start 0, and at the ragged n and starts 10^7 and past 2^24,
               then the generic path on the staged frontend's taps at
               8 MS/s, each also against a float64 oracle of the same f32
-              phases on a sample of outputs
+              phases on a sample of outputs; and K5 at the carrier counts
+              `scan --wideband` gives it (C = 1, the 3 planted channels of
+              phase 4c and all 95 channels of a sweep) on the sweep's
+              offsets at its n = 1,044,480
   4. decode   the main paths through the entry points a user calls, each
               on a planted signal, every launch count set to 0 just before
               and read just after: `tetraear_tpu_torch.ui.cli.main(
@@ -72,6 +75,24 @@ Phases (each prints its results; the first failure exits nonzero):
               K5's plain version), which must launch K5; `uplink
               --simulate` with and without --continuous (every burst's
               CMCE / SDS decoded, rows equal to --device cpu's)
+  4c. operator the operator's commands through the CLI, each path with
+              the launch counts set to 0 just before and read just after:
+              `listen --iq-file f --no-afc --max-chunks 4 -o out.jsonl
+              --no-auto-decrypt` on 20 planted slots (the text in every
+              frame, frames from at least 3 chunks, the JSONL equal byte
+              for byte to --device cpu's), `listen --synthetic
+              --max-chunks 4 --waterfall wf.ppm`, `scan 391.4 393.6
+              --iq-file f -f 392.5 --wideband` on utils.synth.planted_scan
+              (each planted channel, and no other, TETRA in the top 20),
+              which must launch K5, then scan_wideband on the card and on
+              the CPU (every channel's decisions equal, powers within
+              1e-3 dB); the stepped scan over 5 channels (lines equal to
+              --device cpu's); `waterfall` (its rows within 1e-3 dB of
+              the CPU's on bins within 60 dB of the peak and every bin's
+              amplitude within TOL x its row's peak); a headless `tui
+              --max-chunks 4 --duration 5` (its session counts the frames
+              `listen` decoded); and a `listen` whose processor fails on
+              the card (a CUDA out-of-memory), which must raise
   5. single   the single-carrier receiver and the etsi link on the card,
               plain PyTorch (no kernel of the table; the launch counts
               are set to 0 before each path and read after it): the
@@ -104,10 +125,15 @@ Phases (each prints its results; the first failure exits nonzero):
               DownlinkReceiver.receive on one multiframe and its parts,
               one SCH/F group's channel decode, the survey (K5 + etsi
               tail + host walk) at 2.45 M and 8,319,936 samples, and the
-              two uplink monitors
+              two uplink monitors; then the listen loop per 131,072-sample
+              chunk against its 54.6 ms of air with its busy share, one
+              `scan --wideband` sweep with its K5 + tail front (also with
+              all 95 channels hot) and its host decode, and the stepped
+              scan per probed channel with its SignalProcessor
+              construction
 
 The line before the last is a JSON object with each kernel's route,
-source, launches in phases 4 and 5, error, times and bound; the last
+source, launches in phases 4 to 5, error, times and bound; the last
 line is {"ok": true, "device": {...}}.
 """
 
@@ -115,6 +141,7 @@ from __future__ import annotations
 
 import functools
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -374,7 +401,8 @@ def phase_kernel(device) -> dict:
                 _held(tag + " vs f32", "K1-of", got, f32, BF16_TOL)
         del x, got, want, f32
     worst.update(kernel_k4(device))
-    worst["fused_channelize"] = kernel_k5(device)
+    worst["fused_channelize"] = max(kernel_k5(device),
+                                    kernel_k5_scan(device))
     return worst
 
 
@@ -477,6 +505,46 @@ def kernel_k5(device) -> float:
             off = max(errs, key=errs.get)
             print(f"[kernel] {tag}: K5 and plain disagree; {off} is the "
                   "farther from the float64 oracle")
+        worst = max(worst, _held(tag, "K5", got, want, TOL))
+        del x, got, want
+    return worst
+
+
+def kernel_k5_scan(device) -> float:
+    """K5 at the carrier counts `scan --wideband` gives it: C = len(hot),
+    offsets the hot channels' multiples of 25 kHz from a centre that is
+    one too, n = usable = 1,044,480 (scanner.py): one carrier, the three
+    planted channels of phase 4c's capture, and every channel of the
+    sweep (95 at 2.4 MS/s), each within TOL x max|plain| of its plain
+    version and against the float64 oracle on 256 outputs."""
+    import numpy as np
+    import torch
+    from tetraear_tpu_torch.config import ReceiverConfig
+    from tetraear_tpu_torch.models.realpair import staged_state
+    from tetraear_tpu_torch.ops.kernels import fused_channelize as k5
+    worst = 0.0
+    sweep = scan_channels_hz()
+    for offsets in (np.array([-300e3]), np.array(SCAN_OFFSETS), sweep):
+        state = staged_state(offsets.astype(np.float32), ReceiverConfig())
+        offs = torch.as_tensor(state.offsets_hz, device=device)
+        taps = torch.as_tensor(state.taps_d, device=device)
+        gen = torch.Generator(device=device).manual_seed(11)
+        x = torch.randn(SCAN_USABLE, dtype=torch.complex64, device=device,
+                        generator=gen) * 0.1
+        got = _launched("fused_channelize", lambda: k5.fused_channelize(
+            x, offs, state.sample_rate_hz, state.decim, taps))
+        want = k5.fused_channelize_plain(x, offs, state.sample_rate_hz,
+                                         state.decim, taps)
+        m_idx = np.random.default_rng(len(offs)).choice(got.shape[1], 256,
+                                                        replace=False)
+        oracle = _k5_oracle(x, offs, taps, state.sample_rate_hz,
+                            state.decim, 0, m_idx)
+        err = np.abs(got[:, m_idx].cpu().numpy() - oracle).max()
+        lo, hi = offs.min().item() / 1e3, offs.max().item() / 1e3
+        tag = (f"K5 scan sweep C={len(offs)} (offsets {lo:+.0f}..{hi:+.0f} "
+               f"kHz) n={SCAN_USABLE}")
+        print(f"[kernel] {tag}: on 256 outputs max|K5-f64 oracle| = "
+              f"{err:.3e}")
         worst = max(worst, _held(tag, "K5", got, want, TOL))
         del x, got, want
     return worst
@@ -1136,19 +1204,25 @@ DL_MESSAGE = "CHIP SDS"
 CELLS = (3, 8, 12)           # grid indices of carrier_grid(16) with a cell
 
 
+def _quiet_cli(argv: list) -> tuple:
+    """(exit code, stdout) of the port's CLI on argv."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = _cli(argv)
+    return rc, buf.getvalue()
+
+
 def _cli_out(argv: list) -> tuple:
     """The port's CLI on argv with -o into a temporary file: (exit code,
     its stdout lines, the JSONL rows)."""
-    import contextlib
-    import io
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "out.jsonl"
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            rc = _cli([*argv, "-o", str(out)])
+        rc, stdout = _quiet_cli([*argv, "-o", str(out)])
         rows = ([json.loads(line) for line in out.read_text().splitlines()]
                 if out.exists() else [])
-    return rc, buf.getvalue().splitlines(), rows
+    return rc, stdout.splitlines(), rows
 
 
 def _dl_check(tag: str, cond: bool, msg: str) -> None:
@@ -1381,6 +1455,383 @@ def phase_timing_downlink(device, card: str) -> None:
                                18, lead_bits=120, snr_db=22.0, seed=2)
     report("UplinkSlotMonitor.receive, 18 slots", lambda: UplinkSlotMonitor(
         ecc, device=device).receive(iq_sl), len(iq_sl))
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# The operator's commands: the receive loop, the scanner, the waterfall, the
+# terminal UI
+# ---------------------------------------------------------------------------
+
+LISTEN_FRAMES = 20           # planted slots of the listen capture: 5 chunks
+LISTEN_CHUNKS = 4            # --max-chunks of the listen and tui runs
+CHUNK = 128 * 1024           # CaptureLoop's chunk (capture_loop.py:38)
+SCAN_CENTER_MHZ = 392.5
+SCAN_OFFSETS = (-300e3, 0.0, 475e3)      # planted_scan's channels
+SCAN_USABLE = ((1 << 20) // 5120) * 5120  # the sweep's validated samples
+DB_TOL = 1e-3                # dB, waterfall bins within 60 dB of the peak
+# and on every bin |amplitude - the cpu's| within TOL x the row's peak
+# amplitude: two f32 FFTs differ by an absolute rounding error, which in
+# dB grows without bound as a bin's power falls (a noise null 100 dB
+# under the peak read 0.065 dB apart on the card, 6.6e-7 x the peak)
+
+
+def scan_channels_hz():
+    """Offsets of every channel one 2.4 MS/s sweep covers (scanner.py: the
+    25 kHz grid within fs / 2 - 25 kHz of the centre): 95 of them."""
+    import numpy as np
+    fs, step, c = 2.4e6, 25e3, SCAN_CENTER_MHZ * 1e6
+    half = fs / 2 - step
+    first, last = int(np.ceil((c - half) / step)), int((c + half) // step)
+    return np.arange(first, last + 1) * step - c
+
+
+def _op_check(tag: str, cond: bool, msg: str) -> None:
+    print(f"[operator] {tag}: {msg}: {'ok' if cond else 'FAIL'}")
+    if not cond:
+        fail("operator", f"{tag}: {msg}")
+
+
+def _captures(tmp: Path) -> tuple:
+    """The listen capture (LISTEN_FRAMES golden slots, "[TXT] HELLO
+    HELLO") and the scan capture (planted_scan: three texts on 25 kHz
+    channels over noise, one sweep long) as .cf32 files in tmp."""
+    import numpy as np
+    from tetraear_tpu_torch.utils.synth import planted_scan, planted_single
+    x1, text = planted_single("ref-compat", num_frames=LISTEN_FRAMES)
+    xs, want = planted_scan(SCAN_OFFSETS)
+    listen, scan = tmp / "listen.cf32", tmp / "scan.cf32"
+    np.asarray(x1, np.complex64).tofile(listen)
+    np.asarray(xs, np.complex64).tofile(scan)
+    return listen, text, scan, want
+
+
+def _listen_run(listen: Path, text: str, tmp: Path) -> int:
+    """`listen --iq-file f --no-afc --max-chunks 4 -o out.jsonl
+    --no-auto-decrypt` on the card and with --device cpu: the planted text
+    in every frame, frames from at least 3 chunks, the JSONL bytes equal;
+    returns the frames decoded."""
+    argv = ["listen", "--iq-file", str(listen), "--no-afc", "--max-chunks",
+            str(LISTEN_CHUNKS), "--no-auto-decrypt"]
+    out, out_cpu = tmp / "listen.jsonl", tmp / "listen_cpu.jsonl"
+    rc, stdout = _quiet_cli([*argv, "-o", str(out)])
+    rc_cpu, _ = _quiet_cli([*argv, "--device", "cpu", "-o", str(out_cpu)])
+    rows = [json.loads(line) for line in out.read_text().splitlines()]
+    # a chunk's frames are numbered from its start: a new chunk restarts
+    numbers = [r["number"] for r in rows]
+    chunks = 1 + sum(b <= a for a, b in zip(numbers, numbers[1:]))
+    tag = f"cli listen --max-chunks {LISTEN_CHUNKS} ({LISTEN_FRAMES} slots)"
+    print(f"[operator] {tag}: exit {rc} (cpu {rc_cpu}), {len(rows)} frames "
+          f"from at least {chunks} chunks; " + "; ".join(
+              line for line in stdout.splitlines()
+              if line.startswith(("Decoded", "Frames:", "[DEVICE]"))))
+    _op_check(tag, rc == 0 == rc_cpu, "both runs exit 0")
+    _op_check(tag, bool(rows) and {r.get("sds_message") for r in rows}
+              == {text}, f"every frame carries {text!r}")
+    _op_check(tag, chunks >= 3, "frames decoded from at least 3 chunks")
+    _op_check(tag, out.read_bytes() == out_cpu.read_bytes(),
+              "JSONL equal, byte for byte, to the --device cpu run's")
+    return len(rows)
+
+
+def _listen_synthetic_run(tmp: Path) -> None:
+    wf = tmp / "wf.ppm"
+    rc, _ = _quiet_cli(["listen", "--synthetic", "-f", "392.5",
+                             "--max-chunks", "4", "--no-auto-decrypt",
+                             "--waterfall", str(wf)])
+    tag = "cli listen --synthetic --max-chunks 4 --waterfall"
+    _op_check(tag, rc == 0 and wf.exists()
+              and wf.read_bytes().startswith(b"P6\n2048 4\n255\n"),
+              "exit 0, a 2048 x 4 PPM written")
+
+
+def _scan_decisions(result: list) -> list:
+    return [(r["frequency"], r["is_tetra"], r.get("frames_validated"),
+             r.get("crc_pass_rate"), r.get("sync_detected"),
+             r["signal_present"]) for r in result]
+
+
+class _FixedSource:
+    """One capture read again at every call, for the scanner's sweep."""
+
+    def __init__(self, x):
+        self.x = x
+
+    def set_frequency(self, frequency: float) -> None:
+        pass
+
+    def read_samples(self, num_samples: int):
+        return self.x[:num_samples]
+
+
+def _scan_wideband_run(scan: Path, want: dict, device) -> None:
+    """`scan 391.4 393.6 --iq-file f -f 392.5 --wideband` on the card
+    (K5 validates the hot channels): each planted channel tagged TETRA in
+    the printed top 20, no other; then scan_wideband on the card and on
+    the CPU: every channel's decisions equal, powers within DB_TOL."""
+    import numpy as np
+    from tetraear_tpu_torch.signal.scanner import FrequencyScanner
+    argv = ["scan", "391.4", "393.6", "--iq-file", str(scan), "-f",
+            str(SCAN_CENTER_MHZ), "--wideband"]
+    rc, stdout = _quiet_cli(argv)
+    lines = [ln for ln in stdout.splitlines()
+             if re.match(r"\s+\d+\.\d{3} MHz: ", ln)]
+    tagged = sorted(float(ln.split()[0]) for ln in lines
+                    if ln.endswith("*** TETRA"))
+    planted = sorted(round(SCAN_CENTER_MHZ + off / 1e6, 3) for off in want)
+    tag = "cli scan --wideband"
+    print(f"[operator] {tag}: exit {rc}; top: " + "; ".join(
+        ln.strip() for ln in lines[:6]))
+    _op_check(tag, rc == 0 and len(lines) == 20, "exit 0, the top 20 "
+                                                 "channels printed")
+    _op_check(tag, tagged == planted,
+              f"the planted channels {planted} MHz, and only they, TETRA")
+    x = np.fromfile(scan, np.complex64)
+    res = {}
+    for dev in (device, "cpu"):
+        sc = FrequencyScanner(_FixedSource(x), settle_s=0.0, device=dev)
+        res[str(dev)] = sc.scan_wideband(SCAN_CENTER_MHZ * 1e6)
+    got, cpu = res[str(device)], res["cpu"]
+    hot = [r for r in got if r["power_db"] > -70]
+    db = max(abs(a["power_db"] - b["power_db"]) for a, b in zip(got, cpu))
+    print(f"[operator] scan_wideband: {len(got)} channels, {len(hot)} hot "
+          f"(K5 at C = {len(hot)}), max |power - cpu's| = {db:.2e} dB")
+    _op_check("scan_wideband", _scan_decisions(got) == _scan_decisions(cpu),
+              "every channel's is_tetra, frames_validated, crc_pass_rate, "
+              "sync_detected and signal_present equal the --device cpu "
+              "run's")
+    _op_check("scan_wideband", db <= DB_TOL, f"powers within {DB_TOL} dB")
+
+
+def _scan_stepped_run(scan: Path) -> None:
+    """The stepped scan over 5 channels around the capture's centre on the
+    card and with --device cpu: the same result lines."""
+    argv = ["scan", "392.45", "392.55", "--iq-file", str(scan), "-f",
+            str(SCAN_CENTER_MHZ)]
+    rc, stdout = _quiet_cli(argv)
+    rc_cpu, stdout_cpu = _quiet_cli([*argv, "--device", "cpu"])
+
+    def results(text):
+        return [ln for ln in text.splitlines()
+                if re.match(r"\s+\d+\.\d{3} MHz: ", ln)
+                or ln.startswith(("[OK]", "[X]"))]
+    tag = "cli scan 392.45 392.55 (stepped, 5 channels)"
+    print(f"[operator] {tag}: exit {rc} (cpu {rc_cpu}); " + "; ".join(
+        ln.strip() for ln in results(stdout)))
+    _op_check(tag, rc == 0 == rc_cpu and len(results(stdout)) == 6,
+              "both runs exit 0, 5 channels and the best signal printed")
+    _op_check(tag, results(stdout) == results(stdout_cpu),
+              "the result lines equal the --device cpu run's")
+
+
+def _waterfall_run(scan: Path, tmp: Path, device) -> None:
+    """`waterfall f -o wf.png` on the card; its power rows (200 of 2048
+    points) against the --device cpu rows."""
+    import numpy as np
+    from tetraear_tpu_torch.ui.cli import waterfall_power
+    out = tmp / "wf.png"
+    rc, stdout = _quiet_cli(["waterfall", str(scan), "-o", str(out)])
+    tag = "cli waterfall"
+    _op_check(tag, rc == 0 and out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+              and "[OK] 2048x200 waterfall" in stdout,
+              "exit 0, a 2048 x 200 PNG written")
+    x = np.fromfile(scan, np.complex64)
+    got = waterfall_power(x, 2048, 200, device).astype(np.float64)
+    want = waterfall_power(x, 2048, 200, "cpu").astype(np.float64)
+    live = want > want.max() - 60.0
+    err, err_all = (np.abs(got - want)[live].max(),
+                    np.abs(got - want).max())
+    amp, amp_cpu = 10 ** (got / 20), 10 ** (want / 20)
+    amp_err = (np.abs(amp - amp_cpu).max(axis=1)
+               / amp_cpu.max(axis=1)).max()
+    print(f"[operator] waterfall rows {got.shape}: max |card - cpu| "
+          f"{err:.2e} dB on bins within 60 dB of the peak "
+          f"({live.mean():.1%} of them), {err_all:.2e} dB on every bin; "
+          f"max |amplitude - cpu's| {amp_err:.2e} x the row's peak")
+    _op_check(tag, got.shape == want.shape and err <= DB_TOL
+              and amp_err <= TOL,
+              f"rows within {DB_TOL} dB of the --device cpu rows on bins "
+              f"within 60 dB of the peak, every bin's amplitude within "
+              f"{TOL} x its row's peak")
+
+
+def _tui_run(listen: Path, frames: int) -> None:
+    """`tui --iq-file f --max-chunks 4 --duration 5` without a terminal:
+    exit 0, and its session summary counts the frames `listen` decoded
+    from the same chunks."""
+    rc, stdout = _quiet_cli(["tui", "--iq-file", str(listen), "--no-afc",
+                             "--max-chunks", str(LISTEN_CHUNKS),
+                             "--duration", "5", "--no-auto-decrypt"])
+    summary = stdout[stdout.rfind("Frames: "):].splitlines()
+    tag = "cli tui (headless)"
+    print(f"[operator] {tag}: exit {rc}; " + " | ".join(summary[:2]))
+    _op_check(tag, rc == 0 and bool(summary)
+              and summary[0].startswith(f"Frames: {frames} "),
+              f"exit 0, the session summary counts the {frames} frames")
+
+
+def _fault_run(listen: Path) -> None:
+    """A listen whose processor fails on the card (it asks the allocator
+    for 2^50 bytes: a CUDA-side RuntimeError) must end with the error."""
+    import torch
+    from tetraear_tpu_torch.models.receiver import SignalProcessor
+    saved = SignalProcessor.process
+
+    def failing(self, samples, freq_offset=0.0):
+        torch.empty(1 << 50, dtype=torch.uint8, device=self.device)
+        return saved(self, samples, freq_offset)
+    SignalProcessor.process = failing
+    try:
+        rc, _ = _quiet_cli(["listen", "--iq-file", str(listen), "--no-afc",
+                            "--max-chunks", "2"])
+        raised = None
+    except RuntimeError as e:
+        rc, raised = None, e
+    finally:
+        SignalProcessor.process = saved
+    torch.cuda.empty_cache()
+    print(f"[operator] cli listen with a failing device: "
+          + (f"raised {type(raised).__name__}: {str(raised)[:80]}"
+             if raised is not None else f"exit {rc}"))
+    _op_check("device fault", raised is not None,
+              "the command ends with the CUDA error (a nonzero exit)")
+
+
+def phase_operator(device) -> dict:
+    """4c: the operator's commands through the CLI, each path with the
+    launch counts set to 0 just before and read just after; the wideband
+    scan must launch K5."""
+    launches = dict.fromkeys(KERNELS, 0)
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        listen, text, scan, want = _captures(tmp)
+        frames = {}
+        runs = (
+            ("cli listen (replay, -o) against --device cpu", None,
+             lambda: frames.setdefault("n", _listen_run(listen, text, tmp))),
+            ("cli listen --synthetic --waterfall", None,
+             lambda: _listen_synthetic_run(tmp)),
+            ("cli scan --wideband + scan_wideband against the cpu",
+             "fused_channelize", lambda: _scan_wideband_run(scan, want,
+                                                            device)),
+            ("cli scan (stepped)", None, lambda: _scan_stepped_run(scan)),
+            ("cli waterfall", None, lambda: _waterfall_run(scan, tmp,
+                                                           device)),
+            ("cli tui (headless)", None,
+             lambda: _tui_run(listen, frames["n"])),
+            ("cli listen with a device fault", None,
+             lambda: _fault_run(listen)))
+        for tag, wrapper, run in runs:
+            for name, n in _path(tag, wrapper, run).items():
+                launches[name] += n
+    return launches
+
+
+def phase_timing_operator(device, card: str) -> None:
+    """The receive loop per 131,072-sample chunk against its 54.6 ms of
+    air, with its device busy share; one wideband sweep, its K5 + tail
+    front and its host decode; the stepped scan per probed channel and the
+    SignalProcessor construction in it (host clock around synchronized
+    calls, busy from torch.profiler)."""
+    import numpy as np
+    import torch
+    from tetraear_tpu_torch.io.replay import FileReplaySource
+    from tetraear_tpu_torch.models.multicarrier import (
+        MulticarrierDecoder, StagedMulticarrierFrontend)
+    from tetraear_tpu_torch.models.receiver import SignalProcessor
+    from tetraear_tpu_torch.signal.scanner import FrequencyScanner
+    from tetraear_tpu_torch.ui.capture_loop import CaptureLoop
+
+    air_ms = CHUNK / 2.4e6 * 1e3
+    with tempfile.TemporaryDirectory() as tmp_name:
+        listen, _, scan, _ = _captures(Path(tmp_name))
+
+        class Timed(FileReplaySource):
+            """Replay that notes the host clock at every read: a chunk's
+            time is the gap between two reads."""
+            stamps: list = []
+
+            def read_samples(self, num_samples):
+                torch.cuda.synchronize()
+                self.stamps.append(time.perf_counter())
+                return super().read_samples(num_samples)
+
+        def loop_run(chunks: int) -> list:
+            Timed.stamps = []
+            loop = CaptureLoop(Timed(listen, loop=True), auto_decrypt=False,
+                               always_decode=True, afc=False, device=device)
+            loop.run(max_chunks=chunks)
+            return np.diff(Timed.stamps)
+
+        loop_run(3)
+        gaps = loop_run(21)[1:]          # a chunk's start-up left out
+        ms = float(np.median(gaps)) * 1e3
+        busy_ms, top = _device_busy_ms(lambda: loop_run(11), iters=1)
+        busy = ("not measured" if busy_ms is None else
+                f"{busy_ms / 11:.3f} ms a chunk ({busy_ms / 11 / ms:.1%}); "
+                "top " + ", ".join(f"{k[:36]} {v / 11:.3f}"
+                                   for k, v in top[:3]))
+        print(f"[timing] {card}: listen loop (CaptureLoop, ref-compat, "
+              f"replay) {ms:.3f} ms per {CHUNK}-sample chunk (median of "
+              f"{len(gaps)}; {gaps.min() * 1e3:.3f}..{gaps.max() * 1e3:.3f})"
+              f" against {air_ms:.1f} ms of air = {air_ms / ms:.1f}x real "
+              f"time; device busy {busy}")
+
+        x = np.fromfile(scan, np.complex64)
+        sc = FrequencyScanner(_FixedSource(x), settle_s=0.0, device=device)
+
+        def host_ms(fn, iters: int = 3) -> float:
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / iters * 1e3
+        center = SCAN_CENTER_MHZ * 1e6
+        result = sc.scan_wideband(center)
+        hot = [r for r in result if r["power_db"] > -70]
+        sweep_ms = host_ms(lambda: sc.scan_wideband(center))
+        busy_ms, top = _device_busy_ms(lambda: sc.scan_wideband(center),
+                                       iters=1)
+        offs = np.array([r["frequency"] - center for r in hot], np.float32)
+        mc = StagedMulticarrierFrontend.from_offsets(offs, device=device)
+        xd = torch.as_tensor(x[:SCAN_USABLE], device=device)
+        front_ms = _time_ms(lambda: mc(xd), 10)
+        res = mc(xd)
+        dec_ms = host_ms(lambda: MulticarrierDecoder(
+            len(hot), device=device).decode(res))
+        busy = ("not measured" if busy_ms is None else
+                f"{busy_ms:.3f} ms ({busy_ms / sweep_ms:.1%}); top "
+                + ", ".join(f"{k[:36]} {v:.3f}" for k, v in top[:3]))
+        print(f"[timing] {card}: scan --wideband sweep (n={1 << 20}, "
+              f"{len(result)} channels, {len(hot)} hot) {sweep_ms:.3f} ms "
+              f"per sweep; K5 + tail front alone ({len(hot)} carriers, "
+              f"n={SCAN_USABLE}) {front_ms:.3f} ms; host decode of the hot "
+              f"channels {dec_ms:.3f} ms; device busy {busy}")
+        sweep = scan_channels_hz().astype(np.float32)
+        mc95 = StagedMulticarrierFrontend.from_offsets(sweep, device=device)
+        print(f"[timing] {card}: the same front with every channel of the "
+              f"sweep hot ({len(sweep)} carriers): "
+              f"{_time_ms(lambda: mc95(xd), 5):.3f} ms")
+        del xd, res, mc, mc95
+
+        src = FileReplaySource(scan, loop=True)
+        src.open()
+        step = FrequencyScanner(src, settle_s=0.0, device=device)
+        freqs = [center + k * 25e3 for k in range(-2, 3)]
+        probe_ms = host_ms(lambda: [step.scan_frequency(f) for f in freqs],
+                           2) / len(freqs)
+        build_ms = host_ms(lambda: SignalProcessor(sample_rate=2.4e6,
+                                                   device=device), 20)
+        busy_ms, _ = _device_busy_ms(lambda: step.scan_frequency(center),
+                                     iters=2)
+        print(f"[timing] {card}: stepped scan {probe_ms:.3f} ms per probed "
+              f"channel (262,144 samples); of it the SignalProcessor "
+              f"construction (FIR design + taps to the card) {build_ms:.3f} "
+              f"ms ({build_ms / probe_ms:.1%}); device busy "
+              + ("not measured" if busy_ms is None
+                 else f"{busy_ms:.3f} ms ({busy_ms / probe_ms:.1%})"))
     torch.cuda.empty_cache()
 
 
@@ -1626,16 +2077,21 @@ def main() -> int:
         launches[name] += n
     for name, n in phase_downlink(device).items():
         launches[name] += n
+    for name, n in phase_operator(device).items():
+        launches[name] += n
     t4 = time.perf_counter()
     t = phase_timing(device, card)
     t5 = time.perf_counter()
     phase_timing_single(device, card)
     t6 = time.perf_counter()
     phase_timing_downlink(device, card)
+    t7 = time.perf_counter()
+    phase_timing_operator(device, card)
     print(f"[timing] phases: build {t1 - t0:.1f} s, kernel {t2 - t1:.1f} s, "
-          f"decode {t3 - t2:.1f} s, single + downlink {t4 - t3:.1f} s, "
-          f"timing {t5 - t4:.1f} s, single timing {t6 - t5:.1f} s, "
-          f"downlink timing {time.perf_counter() - t6:.1f} s")
+          f"decode {t3 - t2:.1f} s, single + downlink + operator "
+          f"{t4 - t3:.1f} s, timing {t5 - t4:.1f} s, single timing "
+          f"{t6 - t5:.1f} s, downlink timing {t7 - t6:.1f} s, operator "
+          f"timing {time.perf_counter() - t7:.1f} s")
     times = {"s2d_conv": "k1_f32", "s2d_conv_bf16": "k1_bf16",
              "s2d_conv_of": "k1of_f32", "s2d_conv_of_bf16": "k1of_bf16",
              "s2d_conv_db": "k3", "s2d_conv_dt": "k4_f32",

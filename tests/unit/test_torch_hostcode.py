@@ -83,7 +83,10 @@ for name in ("models.downlink", "models.uplink", "ops.rm3014",
              "ops.spectrum", "protocol.bursts", "protocol.layer3",
              "protocol.mac", "protocol.mle", "protocol.mm", "protocol.pdus",
              "protocol.cmce", "protocol.sds_tl", "core.calls",
-             "audio.blocks", "audio.voice"):
+             "audio.blocks", "audio.voice", "signal.detector",
+             "signal.scanner", "ui.capture_loop", "ui.tui", "ui.session",
+             "ui.waterfall", "io.capture", "io.frames_query",
+             "utils.metrics"):
     assert "tetraear_tpu_torch." + name in names, name
 
 def run(*argv):
@@ -125,7 +128,7 @@ assert not bad, bad
 print("decoded")
 ''')
     assert "decoded" in out
-    assert int(out.split("imported ")[1].split()[0]) >= 55
+    assert int(out.split("imported ")[1].split()[0]) >= 74
 
 
 def _names_reference(node) -> list:
@@ -684,3 +687,246 @@ def test_codec_copies_build_into_build_codec_and_equal_the_reference():
         assert port.blocks.validate_block(b) and ref.blocks.validate_block(b)
         np.testing.assert_array_equal(port.blocks.bits_from_tet_block(b),
                                       ref.blocks.bits_from_tet_block(b))
+
+
+# --- the receive loop's, the scanner's and the operator's host copies ------
+
+# the port's copies of host modules the JAX package keeps at the same
+# path; each is the reference's code with only the package name mapped
+# (and its docstrings its own)
+HOST_COPIES = ("core/validator", "core/mcc_mnc", "core/location",
+               "ui/session", "ui/settings", "ui/text", "ui/waterfall",
+               "io/frames_query", "io/capture", "audio/accumulator",
+               "audio/export", "audio/playback", "utils/textscore")
+
+
+class _Normalized(ast.NodeTransformer):
+    """An AST without docstrings, the port's package name mapped back to
+    the reference's in imports and string constants."""
+
+    @staticmethod
+    def _name(text):
+        return text.replace("tetraear_tpu_torch", "tetraear_tpu")
+
+    def _strip(self, node):
+        body = getattr(node, "body", None)
+        if (body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:] or [ast.Pass()]
+        return self.generic_visit(node)
+
+    visit_Module = visit_ClassDef = visit_FunctionDef = _strip
+
+    def visit_ImportFrom(self, node):
+        if node.module:
+            node.module = self._name(node.module)
+        return node
+
+    def visit_Constant(self, node):
+        if isinstance(node.value, str):
+            node.value = self._name(node.value)
+        return node
+
+
+def _code(path: Path) -> str:
+    tree = _Normalized().visit(ast.parse(path.read_text()))
+    return ast.dump(tree, include_attributes=False)
+
+
+@pytest.mark.parametrize("name", HOST_COPIES)
+def test_host_copy_is_the_reference_code(name):
+    """Every new host copy is the reference module's code: the same AST
+    once docstrings are dropped and the package name is mapped."""
+    assert _code(PORT / f"{name}.py") == _code(
+        REPO / "tetraear_tpu" / f"{name}.py")
+
+
+def test_throughput_meter_is_the_reference_code():
+    """utils/metrics: ThroughputMeter is the reference's class (its
+    profile_trace wraps torch.profiler instead of jax.profiler)."""
+    def meter(path):
+        tree = _Normalized().visit(ast.parse(path.read_text()))
+        cls = next(n for n in tree.body if isinstance(n, ast.ClassDef)
+                   and n.name == "ThroughputMeter")
+        return ast.dump(cls)
+    assert meter(PORT / "utils" / "metrics.py") == meter(
+        REPO / "tetraear_tpu" / "utils" / "metrics.py")
+
+
+def test_host_copies_compute_like_the_reference(tmp_path):
+    """The copies that compute, on the same inputs: the frame validator,
+    the MCC table, the location parser, the text scores, the voice
+    accumulator, the WAV export, and the waterfall's buffer, colormap,
+    PNG, calibration, peak helpers and status machine."""
+    import importlib
+    mods = {}
+    for pkg in ("tetraear_tpu", "tetraear_tpu_torch"):
+        mods[pkg] = {n: importlib.import_module(f"{pkg}.{n.replace('/', '.')}")
+                     for n in HOST_COPIES}
+    ref, port = mods["tetraear_tpu"], mods["tetraear_tpu_torch"]
+
+    frames = [json.loads(line) for line in (
+        REPO / "tests" / "conformance" / "fixtures"
+        / "long_mixed.golden.jsonl").read_text().splitlines()
+        if "__meta__" not in line]
+    frames += [{"type_name": "MAC-RESOURCE", "crc_ok": False,
+                "call_metadata": {"mcc": m, "mnc": n},
+                "encryption_algorithm": alg, "decrypted": True,
+                "decrypt_confidence": c}
+               for m, n, alg, c in ((260, 1, "TEA1", 200), (262, 1001,
+                                                            "TEA9", 90),
+                                    (901, 7, None, 0), (214, 3, "TEA3", 180))]
+    va = ref["core/validator"].TetraSignalValidator(expected_country_mcc=260)
+    vb = port["core/validator"].TetraSignalValidator(expected_country_mcc=260)
+    for f in frames:
+        assert va.validate_frame(dict(f)) == vb.validate_frame(dict(f))
+    assert va.get_statistics() == vb.get_statistics()
+    for mcc, mnc in (("260", "01"), ("262", None), ("999", "1"), ("", None)):
+        for fn in ("get_country_from_mcc", "get_location_info"):
+            args = (mcc,) if fn == "get_country_from_mcc" else (mcc, mnc)
+            assert (getattr(ref["core/mcc_mnc"], fn)(*args)
+                    == getattr(port["core/mcc_mnc"], fn)(*args))
+    la, lb = ref["core/location"].LocationParser, \
+        port["core/location"].LocationParser
+    texts = ["Lat: 52.2297 Lon: 21.0122", "52.2297N 21.0122E", "no fix",
+             "[LIP] pos 50.06,19.94", "GPS 48°51'N 2°21'E"]
+    for t in texts:
+        assert la.parse_coordinates(t) == lb.parse_coordinates(t)
+    for data in (bytes(range(12)), b"\x0a\x48\x12\x34\x56\x78\x9a\xbc", b""):
+        assert la.parse_lip_message(data) == lb.parse_lip_message(data)
+    for f in frames[:20] + [{"decoded_text": t} for t in texts]:
+        assert (la.extract_location_from_frame(f)
+                == lb.extract_location_from_frame(f))
+    assert la.format_coordinates(52.2, -21.0) == lb.format_coordinates(
+        52.2, -21.0)
+    for t in ["", "HELLO WORLD again", "[TXT] Meet me at 10", "\x80\x81abc",
+              "[GSM7] AAAA@@@@@", "lowercase and spaces"]:
+        for fn in ("is_pure_ascii", "score_text", "score_readability"):
+            assert (getattr(ref["utils/textscore"], fn)(t)
+                    == getattr(port["utils/textscore"], fn)(t))
+
+    class Clock:
+        t = 0.0
+
+        def __call__(self):
+            return self.t
+    clips = []
+    r = np.random.default_rng(4)
+    pcm = [r.standard_normal(int(n)).astype(np.float32)
+           for n in r.integers(400, 9000, 30)]
+    for mod in (ref, port):
+        clock = Clock()
+        acc = mod["audio/accumulator"].VoiceAccumulator(clock=clock)
+        out = []
+        for k, a in enumerate(pcm):
+            clock.t += 0.5 if k % 7 else 4.0
+            out.append(acc.add(k % 3, a))
+        out += acc.finalize_all()
+        clips.append(out)
+    assert len(clips[0]) == len(clips[1])
+    for a, b in zip(*clips):
+        assert (a is None) == (b is None)
+        if a is not None:
+            np.testing.assert_array_equal(a, b)
+    for name, mod in (("ref", ref), ("port", port)):
+        mod["audio/export"].write_wav(tmp_path / f"{name}.wav", pcm[0] * 0.3)
+    assert (tmp_path / "ref.wav").read_bytes() == (
+        tmp_path / "port.wav").read_bytes()
+
+    wa, wb = ref["ui/waterfall"], port["ui/waterfall"]
+    freqs = np.linspace(391.9, 392.1, 512)
+    rows = [-90 + 60 * np.exp(-((freqs - 392.0 - 0.003 * k) / 0.004) ** 2)
+            + r.standard_normal(512) for k in range(40)]
+    ba, bb = wa.WaterfallBuffer(history=32), wb.WaterfallBuffer(history=32)
+    for row in rows:
+        ba.update_spectrum(freqs, row)
+        bb.update_spectrum(freqs, row)
+    np.testing.assert_array_equal(ba.as_array(), bb.as_array())
+    img = wb.render_waterfall_rgb(bb, -95, -25)
+    np.testing.assert_array_equal(wa.render_waterfall_rgb(ba, -95, -25), img)
+    wa.save_png(tmp_path / "a.png", img)
+    wb.save_png(tmp_path / "b.png", img)
+    assert (tmp_path / "a.png").read_bytes() == (
+        tmp_path / "b.png").read_bytes()
+    for row in rows[:5]:
+        assert (wa.find_spike_band(freqs, row, 392.0, 50e3)
+                == wb.find_spike_band(freqs, row, 392.0, 50e3))
+        assert (wa.find_peak_near(freqs, row, 392.01)
+                == wb.find_peak_near(freqs, row, 392.01))
+        assert (wa.follow_frequency_step(freqs, row, 392.004)
+                == wb.follow_frequency_step(freqs, row, 392.004))
+        assert (wa.AutoSpectrumCalibration(clock=lambda: 10.0).compute(
+            freqs * 1e6, row) == wb.AutoSpectrumCalibration(
+            clock=lambda: 10.0).compute(freqs * 1e6, row))
+    statuses = []
+    for mod in (wa, wb):
+        clock = Clock()
+        m = mod.TetraStatusMachine(clock=clock)
+        m.on_signal(True)
+        seen = []
+        for f in frames:
+            clock.t += 0.7
+            m.on_frame(f)
+            seen.append(m.status())
+        statuses.append(seen)
+    assert statuses[0] == statuses[1]
+
+
+def test_operator_commands_run_with_the_reference_refused(tmp_path):
+    """With jax and tetraear_tpu refused by an import hook: the new
+    modules import, and `listen` (replay, -o, --waterfall), `scan` (stepped
+    and --wideband, its hot channels validated), `waterfall`, `frames`
+    and a headless `tui` run on --device cpu and find the planted
+    texts."""
+    x1, text1 = tsynth.planted_single("ref-compat", num_frames=8)
+    xs, want = tsynth.planted_scan()
+    single, scan = tmp_path / "single.cf32", tmp_path / "scan.cf32"
+    treplay.save_iq(single, x1)
+    treplay.save_iq(scan, xs)
+    tetra_mhz = sorted(round((392.5e6 + off) / 1e6, 3) for off in want)
+    out = _guarded(f'''
+import contextlib, importlib, io, json, os
+os.environ["TETRAEAR_TPU_LOG_DIR"] = {str(tmp_path / "logs")!r}
+from tetraear_tpu_torch.ui.cli import main
+for name in ("signal.detector", "signal.scanner", "ui.capture_loop",
+             "ui.waterfall", "ui.session", "ui.settings", "ui.text",
+             "ui.tui", "core.validator", "core.mcc_mnc", "core.location",
+             "io.capture", "io.frames_query", "audio.accumulator",
+             "audio.export", "audio.playback", "utils.metrics",
+             "utils.textscore"):
+    importlib.import_module("tetraear_tpu_torch." + name)
+
+def run(*argv):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert main([*argv]) == 0, argv
+    return buf.getvalue()
+
+log = {str(tmp_path / "l.jsonl")!r}
+text = run("listen", "--iq-file", {str(single)!r}, "--no-afc",
+           "--no-auto-decrypt", "--device", "cpu", "-o", log,
+           "--waterfall", {str(tmp_path / "wf.ppm")!r})
+rows = [json.loads(line) for line in open(log)]
+assert rows and {{r["sds_message"] for r in rows}} == {{{text1!r}}}, rows
+text = run("scan", "391.4", "393.6", "--iq-file", {str(scan)!r}, "-f",
+           "392.5", "--wideband", "--device", "cpu")
+tagged = sorted(float(line.split()[0]) for line in text.splitlines()
+                if line.endswith("*** TETRA"))
+assert tagged == {tetra_mhz!r}, text
+text = run("scan", "392.475", "392.525", "--iq-file", {str(scan)!r}, "-f",
+           "392.5", "--device", "cpu")
+assert "*** TETRA" in text, text
+text = run("waterfall", {str(scan)!r}, "-o", {str(tmp_path / "wf.png")!r},
+           "--device", "cpu")
+assert "[OK] 2048x200 waterfall" in text, text
+text = run("frames", log, "--stats")
+assert "frames=" + str(len(rows)) + " crc_pass=" in text, text
+text = run("tui", "--iq-file", {str(single)!r}, "--no-afc",
+           "--max-chunks", "3", "--device", "cpu")
+assert "Frames: " in text and "HELLO HELLO" in text, text[-500:]
+bad = [m for m in sys.modules if m.partition(".")[0] in REFUSED]
+assert not bad, bad
+print("ran")
+''')
+    assert "ran" in out

@@ -168,12 +168,27 @@ class TetraDecoder:
 
     # -------------------------------------------------------------- decode
     def decode(self, symbols) -> List[dict]:
-        """Symbol stream -> decoded frame dicts (decoder.py:835-888)."""
+        """Symbol stream -> decoded frame dicts (decoder.py:835-888):
+        `decode_scored(sync_scores(symbols))`."""
+        return self.decode_scored(self.sync_scores(symbols))
+
+    def sync_scores(self, symbols):
+        """The device half of `decode`: (bits, mapped symbols, dense
+        TS1/TS2 scores computed on the decoder's device), or None for a
+        stream shorter than a sync word.  The capture loop and the
+        scanner run it outside the catch that guards the host half, so
+        that a device fault ends their run."""
         bits, mapped_symbols = self.symbols_to_bits(symbols)
         if bits.size < C.SYNC_LEN_BITS:
+            return None
+        return bits, mapped_symbols, self.dense_sync(bits)
+
+    def decode_scored(self, scored) -> List[dict]:
+        """The host half of `decode`: the sync search and the frame decode
+        on the result of `sync_scores` ([] for None)."""
+        if scored is None:
             return []
-        dense = self.dense_sync(bits)
-        return self._decode_with_dense(bits, mapped_symbols, dense)
+        return self._decode_with_dense(*scored)
 
     def decode_frontend(self, bits, mapped_symbols, best_corr) -> List[dict]:
         """Decode from device-frontend outputs (bits + dense best-of-TS1/TS2

@@ -1,6 +1,13 @@
-"""Command line of the port: `decode` (single-carrier or wideband),
-`downlink` and `uplink`.
+"""Command line of the port: `listen`, `tui`, `decode` (single-carrier or
+wideband), `downlink`, `uplink`, `scan`, `waterfall`, `codec`, `frames`
+and `devices`.
 
+    python -m tetraear_tpu_torch listen [--iq-file f | --synthetic]
+        [-f MHz] [--no-afc] [--overlap N] [--max-chunks N] [-o out.jsonl]
+        [--waterfall wf.ppm] [--trace-dir DIR] [--sdr-device SERIAL]
+        [--device cuda|cpu] ...
+    python -m tetraear_tpu_torch tui [--iq-file f | --synthetic]
+        [--max-chunks N] [--duration S] [--device cuda|cpu] ...
     python -m tetraear_tpu_torch decode <iq>
         [--profile ref-compat|ref-exact|etsi] [--key-file keys.txt]
         [-o out.jsonl] [--chunk-size S] [--device cuda|cpu] [-v]
@@ -11,27 +18,47 @@
         [--traffic-depth 1|4|8] [-o out.jsonl] [--voice-wav w.wav]
     python -m tetraear_tpu_torch uplink [<iq>] [--simulate] [--continuous]
         [--mcc M --mnc N --colour-code C] [--anchor TN:FN:MN] [-o ...]
+    python -m tetraear_tpu_torch scan START STOP [--wideband]
+        [--iq-file f | --synthetic] [-f MHz] [--device cuda|cpu]
+    python -m tetraear_tpu_torch waterfall <iq> [-o x.png] [--rows N]
+        [--fft-size N] [--device cuda|cpu]
+    python -m tetraear_tpu_torch codec encode|decode <in> [-o out]
+    python -m tetraear_tpu_torch frames <log.jsonl> [--stats] [--type T]
+        [--group G] [-o out.jsonl] ...
+    python -m tetraear_tpu_torch devices
 
-Mirrors the JAX package's `decode`, `downlink` and `uplink` commands
-(tetraear_tpu/ui/cli.py cmd_decode, _decode_multicarrier, cmd_downlink,
-cmd_uplink): the same options, printed lines and JSONL.  `decode`
-without --carriers runs the single-carrier receiver of --profile
-(`SignalProcessor.process_full`, then the host `TetraDecoder.decode`);
-with --carriers N, N carriers of the 25 kHz grid, or with --pfb every
-channel of the band (96 at 2.4 MS/s, a frame's `carrier` its fftfreq
-channel index); --afc estimates the grid's shared tuner offset per chunk
-(ops/spectrum.estimate_grid_offset_hz) and derotates before the
-channelizer.  Chunks are read with FileReplaySource, the last chunk
-zero-padded to full length, the device result of chunk i+1 queued before
-chunk i is decoded on the host.  `downlink` decodes an ETSI downlink
-(models/downlink.py; --survey N: every cell on N carriers, the
-channelizer K5 on a card), `uplink` the isolated-burst or, with
+Mirrors the JAX package's commands (tetraear_tpu/ui/cli.py): the same
+options, printed lines and JSONL. `listen` is the reference's `--no-gui`
+receive loop (ui/capture_loop.CaptureLoop) on a replay file, the
+synthetic source or a BladeRF, `tui` the same loop under the terminal
+UI; `scan` probes channel by channel (signal/scanner.py) or, with
+--wideband, sweeps one capture and validates its hot channels through
+the staged multicarrier decode (K5 on a card); `waterfall` renders a
+capture's spectra. `decode` without --carriers runs the single-carrier
+receiver of --profile (`SignalProcessor.process_full`, then the host
+`TetraDecoder.decode`); with --carriers N, N carriers of the 25 kHz
+grid, or with --pfb every channel of the band (96 at 2.4 MS/s, a frame's
+`carrier` its fftfreq channel index); --afc estimates the grid's shared
+tuner offset per chunk (ops/spectrum.estimate_grid_offset_hz) and
+derotates before the channelizer. Chunks are read with FileReplaySource,
+the last chunk zero-padded to full length, the device result of chunk
+i+1 queued before chunk i is decoded on the host. `downlink` decodes an
+ETSI downlink (models/downlink.py; --survey N: every cell on N carriers,
+the channelizer K5 on a card), `uplink` the isolated-burst or, with
 --continuous, the slot-synchronous uplink monitor (models/uplink.py);
 --simulate synthesizes the capture first, as the reference does.
 
-Every command runs on `--device`, cuda unless the caller asks for the
-CPU with `--device cpu`; without a card a command refuses to run and
-says so.  There is no fallback from one device to the other.  `--conv`
+Every command that touches tensors (`listen`, `tui`, `decode`,
+`downlink`, `uplink`, `scan`, `waterfall`) runs on `--device`, cuda
+unless the caller asks for the CPU with `--device cpu`; without a card a
+command refuses to run and says so.  There is no fallback from one
+device to the other.  `codec`, `frames` and `devices` are host work and
+take no --device.  A renamed option: in the reference, `listen --device`
+and `tui --device` name the BladeRF; here --device is the torch device
+and the BladeRF's serial is `--sdr-device`.  A fault on the device
+(kernel build or launch, CUDA error, out-of-memory) ends `listen`, `tui`,
+`scan` and `waterfall` with the exception, where the reference's loop
+and scanner turned it into "no signal" and exit 0.  `--conv`
 defaults to `auto`, as in the reference, and resolves as the reference's
 does: on the CPU the staged chain (with --pfb the gather-form
 filterbank), on a card s2d.  `main` sets up the reference's per-run log
@@ -42,7 +69,9 @@ from __future__ import annotations
 
 import argparse
 import logging
+import sys
 import time
+from datetime import datetime
 from pathlib import Path
 
 import torch
@@ -107,6 +136,204 @@ def _load_keys(args, decoder) -> None:
 
 def _device_name(dev: torch.device) -> str:
     return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "host"
+
+
+_ANSI = {"red": "\x1b[31m", "green": "\x1b[32m", "yellow": "\x1b[33m",
+         "blue": "\x1b[34m", "magenta": "\x1b[35m", "cyan": "\x1b[36m",
+         "white": "\x1b[37m", "reset": "\x1b[0m"}
+
+
+def _c(color: str, text: str) -> str:
+    if sys.stdout.isatty():
+        return f"{_ANSI[color]}{text}{_ANSI['reset']}"
+    return text
+
+
+class CLITetraListener:
+    """Colored frame/status printer (ui/modern.py:5422-5493)."""
+
+    _TYPE_COLORS = [("MAC-RESOURCE", "blue"), ("MAC-BROADCAST", "yellow"),
+                    ("MAC-FRAG", "green"), ("MAC-SUPPL", "magenta"),
+                    ("MAC-U-SIGNAL", "red"), ("MAC-DATA", "cyan")]
+
+    def __init__(self, loop):
+        self.loop = loop
+        self.start_time = datetime.now()
+        self.signal_active = False
+        self.frame_count = 0
+        loop.on_status = self.on_status
+        loop.on_error = self.on_error
+        loop.on_signal = self.on_signal
+        loop.on_signal_lost = self.on_signal_lost
+        loop.on_frame = self.on_frame
+
+    def on_status(self, msg):
+        print(_c("cyan", f"[STATUS] {msg}"))
+
+    def on_error(self, msg):
+        print(_c("red", f"[ERROR] {msg}"))
+
+    def on_signal(self, freq, snr):
+        if not self.signal_active:
+            print(_c("green", f"[SIGNAL] TETRA Detected at {freq / 1e6:.4f} "
+                              f"MHz (SNR: {snr:.1f} dB)"))
+            self.signal_active = True
+
+    def on_signal_lost(self):
+        if self.signal_active:
+            print(_c("yellow", f"[SIGNAL] Signal Lost "
+                               f"(decoded {self.frame_count} frames)"))
+            self.signal_active = False
+
+    def on_frame(self, frame):
+        self.frame_count += 1
+        ts = datetime.now().strftime("%H:%M:%S.%f")[:-3]
+        fn = frame.get("number", "?")
+        ftype = frame.get("type_name", "Unknown")
+        color = "white"
+        for key, col in self._TYPE_COLORS:
+            if key in ftype:
+                color = col
+                break
+        enc = ""
+        if frame.get("decrypted"):
+            enc = _c("green", "[DEC]")
+        elif frame.get("encrypted"):
+            enc = _c("red", "[ENC]")
+        content = ""
+        if "sds_message" in frame:
+            content = _c("cyan", f"SDS: {frame['sds_message']}")
+        elif "decoded_text" in frame:
+            content = _c("cyan", f"TXT: {frame['decoded_text']}")
+        elif frame.get("has_voice"):
+            content = _c("green", "Voice Audio")
+        print(f"[{ts}] #{fn:<4} {_c(color, f'{ftype:<15}')} {enc} {content}")
+
+
+def _make_source(args):
+    """--iq-file (replay), --synthetic, else the BladeRF named by
+    --sdr-device (the reference's `--device`)."""
+    from tetraear_tpu_torch.io.replay import FileReplaySource, SyntheticSource
+    if args.iq_file:
+        return FileReplaySource(args.iq_file,
+                                sample_rate=args.sample_rate * 1e6,
+                                frequency=args.frequency * 1e6,
+                                loop=getattr(args, "loop", False),
+                                realtime=getattr(args, "realtime", False))
+    if getattr(args, "synthetic", False):
+        return SyntheticSource(active_frequencies=(args.frequency * 1e6,),
+                               sample_rate=args.sample_rate * 1e6,
+                               frequency=args.frequency * 1e6)
+    from tetraear_tpu_torch.io.capture import BladeRFCapture
+    return BladeRFCapture(frequency=args.frequency * 1e6,
+                          sample_rate=args.sample_rate * 1e6,
+                          gain=args.gain,
+                          device_identifier=getattr(args, "sdr_device", None))
+
+
+def _capture_loop(args, dev: torch.device, **kwargs):
+    """The CaptureLoop of `listen` / `tui` on `dev`."""
+    from tetraear_tpu_torch.ui.capture_loop import CaptureLoop
+    return CaptureLoop(
+        _make_source(args),
+        frequency=args.frequency * 1e6,
+        sample_rate=args.sample_rate * 1e6,
+        auto_decrypt=args.auto_decrypt,
+        always_decode=bool(args.iq_file or args.synthetic),
+        afc=not args.no_afc,
+        overlap=args.overlap,
+        receiver_config=_receiver_config(args),
+        device=dev, **kwargs)
+
+
+def cmd_tui(args) -> int:
+    """Interactive terminal UI (ui/tui.py): live waterfall + tables +
+    SDS feed + key toggles + voice playback, the receive loop on
+    --device.  A fault of the loop on the device is re-raised here."""
+    from tetraear_tpu_torch.audio.playback import AudioSink
+    from tetraear_tpu_torch.ui.logging_setup import get_records_dir
+    from tetraear_tpu_torch.ui.tui import TerminalUI
+
+    dev = _device(args.device)
+    print(f"[DEVICE] {dev} ({_device_name(dev)}), tui")
+    loop = _capture_loop(args, dev)
+    _load_keys(args, loop)
+    sink = AudioSink(record_dir=(str(get_records_dir())
+                                 if args.record else None))
+    ui = TerminalUI(loop, audio_sink=sink)
+    try:
+        ui.run(max_chunks=args.max_chunks, duration_s=args.duration)
+    except KeyboardInterrupt:
+        loop.stop(join=False)
+    print(ui.state.session.summary())
+    return 0
+
+
+def cmd_listen(args) -> int:
+    """The live / replay receive loop (the reference's `--no-gui` mode)
+    on --device: frames printed, optionally written as JSONL (-o), the
+    session summary at the end."""
+    from tetraear_tpu_torch.io.recorder import JsonlFrameRecorder
+    from tetraear_tpu_torch.ui.logging_setup import get_records_dir
+    from tetraear_tpu_torch.ui.session import SessionAggregator
+    from tetraear_tpu_torch.utils.metrics import profile_trace
+
+    dev = _device(args.device)
+    print(_c("cyan", "TetraEar-TPU - CLI Mode"))
+    print(f"Frequency: {args.frequency} MHz")
+    print(f"Gain: {args.gain} dB")
+    print(f"Sample Rate: {args.sample_rate} MHz")
+    print(f"[DEVICE] {dev} ({_device_name(dev)}), listen")
+
+    loop = _capture_loop(
+        args, dev, monitor_raw=args.monitor_audio,
+        records_dir=str(get_records_dir()) if args.record else None)
+    listener = CLITetraListener(loop)
+    session = SessionAggregator()
+    _orig_on_frame = loop.on_frame
+
+    def _frame_with_session(frame):
+        session.on_frame(frame)
+        _orig_on_frame(frame)
+    loop.on_frame = _frame_with_session
+    _load_keys(args, loop)
+
+    wf_buffer = None
+    if args.waterfall:
+        from tetraear_tpu_torch.ui.waterfall import WaterfallBuffer
+        wf_buffer = WaterfallBuffer()
+        loop.on_spectrum = lambda freqs, power: wf_buffer.update_spectrum(
+            freqs, power)
+
+    recorder = None
+    if args.out_jsonl:
+        recorder = JsonlFrameRecorder(args.out_jsonl)
+        prev = loop.on_frame
+
+        def on_frame(frame):
+            recorder.write(frame)
+            prev(frame)
+        loop.on_frame = on_frame
+
+    try:
+        with profile_trace(args.trace_dir):
+            loop.run(max_chunks=args.max_chunks)
+    except KeyboardInterrupt:
+        print(_c("yellow", "\nStopping..."))
+        loop.stop(join=False)
+    finally:
+        if recorder:
+            recorder.close()
+        if wf_buffer is not None and wf_buffer.history:
+            from tetraear_tpu_torch.ui.waterfall import (render_waterfall_rgb,
+                                                         save_ppm)
+            save_ppm(args.waterfall, render_waterfall_rgb(wf_buffer))
+            print(f"Waterfall image: {args.waterfall}")
+    print(f"Decoded {listener.frame_count} frames "
+          f"from {loop.chunks_processed} chunks")
+    print(loop.meter.summary())
+    print(session.summary())
+    return 0
 
 
 def cmd_decode(args) -> int:
@@ -670,11 +897,337 @@ def cmd_uplink(args) -> int:
     return 0
 
 
+def cmd_scan(args) -> int:
+    """Channel-by-channel scan of START..STOP, or with --wideband one
+    capture swept at once, its hot channels validated through the staged
+    multicarrier decode (K5 on a card), on --device."""
+    from tetraear_tpu_torch.signal.scanner import FrequencyScanner
+    dev = _device(args.device)
+    print(f"[DEVICE] {dev} ({_device_name(dev)}), scan")
+    source = _make_source(args)
+    if not source.open():
+        print(_c("red", "[FAIL] Could not open source"))
+        return 1
+    scanner = FrequencyScanner(source, sample_rate=args.sample_rate * 1e6,
+                               scan_step=25e3,
+                               settle_s=0.0 if (args.iq_file or args.synthetic)
+                               else 0.05, device=dev)
+    start, stop = args.start * 1e6, args.stop * 1e6
+    if args.wideband:
+        center = (start + stop) / 2
+        print(f"Wideband sweep centered {center / 1e6:.3f} MHz "
+              f"({args.sample_rate:.1f} MHz span, one capture)...")
+        results = [r for r in scanner.scan_wideband(center)
+                   if start <= r["frequency"] <= stop]
+        for r in sorted(results, key=lambda x: -x["power_db"])[:20]:
+            tag = " *** TETRA" if r.get("is_tetra") else ""
+            print(f"  {r['frequency_mhz']:.3f} MHz: "
+                  f"{r['power_db']:.1f} dB{tag}")
+        source.close()
+        return 0
+    print(f"Scanning {args.start:.3f} - {args.stop:.3f} MHz...")
+    results = []
+    freq = start
+    while freq <= stop:
+        result = scanner.scan_frequency(freq)
+        if result["power_db"] > -60:
+            results.append(result)
+            tag = " *** TETRA" if result.get("is_tetra") else " *** SIGNAL"
+            print(f"  {freq / 1e6:.3f} MHz: {result['power_db']:.1f} dB"
+                  + tag)
+        freq += 25e3
+    source.close()
+    if results:
+        results.sort(key=lambda x: x["power_db"], reverse=True)
+        best = results[0]
+        print(_c("green", f"\n[OK] Best signal: "
+                          f"{best['frequency'] / 1e6:.3f} MHz "
+                          f"({best['power_db']:.1f} dB)"))
+    else:
+        print(_c("yellow", "\n[X] No strong signals found"))
+    return 0
+
+
+def waterfall_power(x, n_fft: int, rows: int, device) -> "np.ndarray":
+    """The waterfall's power rows of capture x: (frames, n_fft) dBFS
+    spectra on `device`, frames spread evenly over the capture so that
+    about `rows` of them cover it (the reference's hop)."""
+    from tetraear_tpu_torch.ops.spectrum import spectrum_frames_dbfs
+    rows = max(1, rows)
+    hop = max((len(x) - n_fft) // max(rows - 1, 1), 1) if len(x) > n_fft \
+        else n_fft
+    return spectrum_frames_dbfs(torch.as_tensor(x, device=device), n_fft,
+                                hop).cpu().numpy()
+
+
+def cmd_waterfall(args) -> int:
+    """Render an IQ capture's waterfall to a PNG/PPM image: the spectra on
+    --device, the reference GUI's WaterfallBuffer history, IIR denoiser
+    and blue-cyan-yellow-red colormap on the host."""
+    import numpy as np
+    from tetraear_tpu_torch.io.replay import load_iq
+    from tetraear_tpu_torch.ui.waterfall import (WaterfallBuffer,
+                                                 render_waterfall_rgb,
+                                                 save_png, save_ppm)
+
+    dev = _device(args.device)
+    print(f"[DEVICE] {dev} ({_device_name(dev)}), waterfall")
+    x = load_iq(args.iq_file)
+    if x.size == 0:
+        print(_c("red", f"[FAIL] empty capture {args.iq_file}"))
+        return 1
+    n_fft = args.fft_size
+    rows = max(1, args.rows)
+    power = waterfall_power(x, n_fft, rows, dev)
+    if power.shape[0] == 0:
+        print(_c("red", "[FAIL] capture shorter than one FFT frame"))
+        return 1
+
+    buf = WaterfallBuffer(denoise=args.denoise, history=rows)
+    freqs = np.zeros(n_fft)   # buffer keys rows by time only
+    for row in power[:rows]:
+        buf.update_spectrum(freqs, row)
+    lo = float(np.percentile(power, 5))
+    hi = float(np.percentile(power, 99.9))
+    rgb = render_waterfall_rgb(buf, floor_db=lo, top_db=max(hi, lo + 1.0))
+    out = Path(args.out or (str(Path(args.iq_file).with_suffix(""))
+                            + "_waterfall.png"))
+    if out.suffix.lower() == ".ppm":
+        save_ppm(out, rgb)
+    else:
+        save_png(out, rgb)
+    print(_c("green", f"[OK] {rgb.shape[1]}x{rgb.shape[0]} waterfall "
+                      f"({lo:.1f}..{hi:.1f} dBFS) -> {out}"))
+    return 0
+
+
+def cmd_codec(args) -> int:
+    """Offline voice-codec workflows over the codec built from
+    native/codec: encode PCM/WAV -> coded .tet blocks, decode .tet ->
+    WAV (host only)."""
+    import wave
+
+    import numpy as np
+    from tetraear_tpu_torch import constants as C
+    from tetraear_tpu_torch.audio.voice import VoiceEncoder, VoiceProcessor
+
+    def read_pcm(path: Path) -> np.ndarray:
+        if path.suffix.lower() == ".wav":
+            with wave.open(str(path), "rb") as w:
+                if w.getsampwidth() != 2:
+                    raise SystemExit(f"{path}: need a 16-bit WAV")
+                if w.getframerate() != 8000:
+                    print(_c("yellow", f"note: {w.getframerate()} Hz WAV; "
+                                       "codec expects 8 kHz"))
+                channels = w.getnchannels()
+                raw = w.readframes(w.getnframes())
+            pcm = np.frombuffer(raw, np.int16)
+            if channels > 1:
+                pcm = pcm.reshape(-1, channels)[:, 0].copy()
+            return pcm
+        return np.fromfile(path, np.int16)
+
+    def write_wav(path: Path, audio: np.ndarray) -> None:
+        with wave.open(str(path), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(8000)
+            w.writeframes((np.clip(audio, -1, 1) * 32767
+                           ).astype(np.int16).tobytes())
+
+    src = Path(args.input)
+    dst = Path(args.out) if args.out else None
+    if args.direction == "encode":
+        enc = VoiceEncoder(codec_dir=args.codec_dir)
+        if not enc.working:
+            print(_c("red", "[FAIL] scoder/ccoder not found (no C compiler "
+                            "to build native/codec)"))
+            return 1
+        pcm = read_pcm(src)
+        blocks = enc.encode_pcm(pcm)
+        if not blocks:
+            print(_c("red", "[FAIL] encode produced no blocks"))
+            return 1
+        dst = dst or src.with_suffix(".tet")
+        dst.write_bytes(b"".join(blocks))
+        print(_c("green", f"[OK] {len(pcm)} samples "
+                          f"({len(pcm) / 8000:.2f} s) -> {len(blocks)} "
+                          f"coded TCH/S blocks -> {dst}"))
+        return 0
+
+    vp = VoiceProcessor(codec_dir=args.codec_dir)
+    if not vp.working:
+        print(_c("red", "[FAIL] cdecoder/sdecoder not found (no C compiler "
+                        "to build native/codec)"))
+        return 1
+    raw = src.read_bytes()
+    blk = C.CODEC_BLOCK_BYTES
+    nblk = len(raw) // blk
+    blocks = [raw[i * blk:(i + 1) * blk] for i in range(nblk)]
+    audio = vp.decode_stream(blocks)
+    if audio.size == 0:
+        print(_c("red", "[FAIL] no decodable blocks"))
+        return 1
+    dst = dst or src.with_suffix(".wav")
+    write_wav(dst, audio)
+    print(_c("green", f"[OK] {nblk} blocks -> {audio.size} PCM samples "
+                      f"({audio.size / 8000:.2f} s) -> {dst}"))
+    return 0
+
+
+def cmd_frames(args) -> int:
+    """Query a frames-JSONL log: the headless face of the reference GUI's
+    Calls/Groups/Users/Message-Type dropdown filters and statistics panel
+    (host only)."""
+    import json
+    from tetraear_tpu_torch.io.frames_query import (FrameFilter, FrameStats,
+                                                    filter_frames,
+                                                    format_frame_line,
+                                                    frames_stats, read_frames)
+    src = Path(args.log)
+    if not src.exists():
+        print(_c("red", f"[FAIL] {src} not found"))
+        return 1
+    encrypted = None
+    if args.encrypted:
+        encrypted = True
+    elif args.clear:
+        encrypted = False
+    flt = FrameFilter(
+        types=tuple(t.strip().lower() for t in (args.type or [])),
+        group=args.group, user=args.user,
+        call_type=args.call_type.lower() if args.call_type else None,
+        timeslot=args.timeslot, encrypted=encrypted,
+        sds_only=args.sds_only)
+    matched = filter_frames(read_frames(src), flt)
+
+    if args.stats:
+        if args.out:
+            # both: the matching frames written AND the panel printed, in
+            # one streaming pass
+            st = FrameStats()
+            with open(args.out, "w", encoding="utf-8") as fp:
+                for frame in matched:
+                    fp.write(json.dumps(frame) + "\n")
+                    st.add(frame)
+        else:
+            st = frames_stats(matched)
+        print(f"frames={st.total} crc_pass={st.crc_pass} "
+              f"encrypted={st.encrypted} decrypted={st.decrypted} "
+              f"sds={st.sds}")
+        for title, counter in (("types", st.by_type), ("groups", st.groups),
+                               ("users", st.users),
+                               ("call types", st.call_types)):
+            if counter:
+                items = ", ".join(f"{k}:{v}" for k, v
+                                  in counter.most_common(args.top))
+                print(f"  {title}: {items}")
+        return 0
+
+    count = 0
+    out_fp = open(args.out, "w", encoding="utf-8") if args.out else None
+    try:
+        for frame in matched:
+            count += 1
+            if out_fp:
+                out_fp.write(json.dumps(frame) + "\n")
+            else:
+                print(format_frame_line(frame))
+    finally:
+        if out_fp:
+            out_fp.close()
+    where = f" -> {args.out}" if args.out else ""
+    print(_c("green", f"[OK] {count} frames matched{where}"))
+    return 0
+
+
+def cmd_devices(_args) -> int:
+    """The BladeRF devices on this host (host only; exit 1 without the
+    bladerf module or a device, as in the reference)."""
+    from tetraear_tpu_torch.io.capture import (BLADERF_AVAILABLE,
+                                               list_bladerf_devices)
+    if not BLADERF_AVAILABLE:
+        print("bladerf module not available on this host")
+        return 1
+    devices = list_bladerf_devices()
+    if not devices:
+        print("No BladeRF devices found")
+        return 1
+    for d in devices:
+        print(f"serial={d['serial']} bus={d['usb_bus']} addr={d['usb_addr']}")
+    return 0
+
+
+def _add_common(p) -> None:
+    """The receive options shared by `listen`, `tui` and `scan`."""
+    p.add_argument("-f", "--frequency", type=float, default=390.865,
+                   help="Frequency in MHz (default: 390.865)")
+    p.add_argument("-g", "--gain", type=float, default=50.0,
+                   help="RF gain in dB (default: 50.0)")
+    p.add_argument("-s", "--sample-rate", type=float, default=2.4,
+                   help="Sample rate in MHz (default: 2.4)")
+    p.add_argument("--iq-file", type=str, default=None,
+                   help="Replay IQ from file instead of hardware")
+    p.add_argument("--synthetic", action="store_true",
+                   help="Use a synthetic TETRA signal source")
+    p.add_argument("--auto-decrypt", action=argparse.BooleanOptionalAction,
+                   default=True, help="Enable auto-decryption")
+    p.add_argument("--key-file", type=str, default=None,
+                   help="ALG:ID:HEX key file for decryption")
+    p.add_argument("--profile", type=str, default="ref-compat",
+                   choices=["ref-exact", "ref-compat", "etsi"],
+                   help="receiver DSP profile (default: ref-compat)")
+    _add_device(p)
+    p.add_argument("-v", "--verbose", action="store_true")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="tetraear_tpu_torch",
         description="TETRA decode on PyTorch / CUDA")
     sub = p.add_subparsers(dest="command", required=True)
+
+    t = sub.add_parser("tui", help="interactive terminal UI "
+                       "(waterfall + tables + SDS + key toggles)")
+    _add_common(t)
+    _add_sdr_device(t)
+    t.add_argument("--record", action="store_true",
+                   help="record decoded voice to a WAV in records/")
+    t.add_argument("--loop", action="store_true", help="loop replay file")
+    t.add_argument("--realtime", action="store_true",
+                   help="pace replay at capture rate")
+    t.add_argument("--no-afc", action="store_true")
+    t.add_argument("--overlap", type=int, default=0)
+    t.add_argument("--max-chunks", type=int, default=None)
+    t.add_argument("--duration", type=float, default=None,
+                   help="exit after N seconds (headless demos)")
+    t.set_defaults(func=cmd_tui)
+
+    li = sub.add_parser("listen", help="live/replay decode loop")
+    _add_common(li)
+    li.add_argument("-m", "--monitor-audio", action="store_true")
+    _add_sdr_device(li)
+    li.add_argument("--record", action="store_true",
+                    help="record codec blocks to records/")
+    li.add_argument("--loop", action="store_true", help="loop replay file")
+    li.add_argument("--realtime", action="store_true",
+                    help="pace replay at capture rate")
+    li.add_argument("--no-afc", action="store_true",
+                    help="disable peak-bin AFC (use for centered replays)")
+    li.add_argument("--waterfall", type=str, default=None,
+                    help="write a waterfall image (PPM) on exit")
+    li.add_argument("--overlap", type=int, default=0,
+                    help="IQ samples of chunk overlap (recovers frames "
+                         "straddling chunk edges; duplicates deduped)")
+    li.add_argument("--trace-dir", type=str, default=None,
+                    help="write a torch.profiler trace (Chrome trace "
+                         "format, trace.json) of the session into DIR")
+    li.add_argument("--max-chunks", type=int, default=None)
+    li.add_argument("-o", "--out-jsonl", type=str, default=None)
+    li.add_argument("--no-gui", action="store_true",
+                    help="(compat flag; this build is always headless)")
+    li.set_defaults(func=cmd_listen)
+
     d = sub.add_parser("decode", help="offline IQ file -> frames JSONL: "
                                       "one carrier (--profile), or every "
                                       "carrier of the grid (--carriers N)")
@@ -763,6 +1316,73 @@ def build_parser() -> argparse.ArgumentParser:
     _add_device(ul)
     ul.add_argument("-v", "--verbose", action="store_true")
     ul.set_defaults(func=cmd_uplink)
+
+    sc = sub.add_parser("scan", help="scan a frequency range")
+    sc.add_argument("start", type=float, help="start MHz")
+    sc.add_argument("stop", type=float, help="stop MHz")
+    sc.add_argument("--wideband", action="store_true",
+                    help="one wideband capture + batched FFT sweep "
+                         "instead of per-channel retuning")
+    _add_common(sc)
+    sc.set_defaults(func=cmd_scan)
+
+    wf = sub.add_parser("waterfall",
+                        help="render an IQ capture's waterfall to PNG/PPM")
+    wf.add_argument("iq_file", type=str, help="IQ capture (.cf32/.sc16)")
+    wf.add_argument("-o", "--out", type=str, default=None,
+                    help="output image (.png or .ppm; default: "
+                         "<iq>_waterfall.png)")
+    wf.add_argument("--rows", type=int, default=200,
+                    help="waterfall rows (default 200, the GUI's "
+                         "history depth)")
+    wf.add_argument("--fft-size", type=int, default=2048,
+                    help="FFT size (default 2048, modern.py:1929)")
+    wf.add_argument("--denoise", action=argparse.BooleanOptionalAction,
+                    default=True, help="IIR spectrum denoiser (alpha=0.15)")
+    _add_device(wf)
+    wf.set_defaults(func=cmd_waterfall)
+
+    co = sub.add_parser("codec",
+                        help="offline ACELP codec: PCM/WAV <-> coded "
+                             ".tet blocks")
+    co.add_argument("direction", choices=["encode", "decode"])
+    co.add_argument("input", type=str,
+                    help="encode: .wav/.pcm (16-bit 8 kHz); "
+                         "decode: .tet (690-short blocks)")
+    co.add_argument("-o", "--out", type=str, default=None)
+    co.add_argument("--codec-dir", type=str, default=None,
+                    help="override codec binary directory")
+    co.set_defaults(func=cmd_codec)
+
+    fr = sub.add_parser("frames",
+                        help="filter/summarize a frames JSONL log "
+                             "(the GUI dropdown filters, headless)")
+    fr.add_argument("log", type=str, help="frames .jsonl from decode/listen")
+    fr.add_argument("--type", action="append", default=None,
+                    metavar="NAME",
+                    help="frame type_name (repeatable, e.g. MAC-RESOURCE)")
+    fr.add_argument("--group", type=int, default=None, help="talkgroup id")
+    fr.add_argument("--user", type=int, default=None,
+                    help="SSI (matches source or destination)")
+    fr.add_argument("--call-type", type=str, default=None,
+                    help="Individual/Group/...")
+    fr.add_argument("--timeslot", type=int, default=None)
+    fr.add_argument("--encrypted", action="store_true",
+                    help="encrypted frames only")
+    fr.add_argument("--clear", action="store_true",
+                    help="clear frames only")
+    fr.add_argument("--sds-only", action="store_true",
+                    help="frames carrying an SDS message")
+    fr.add_argument("--stats", action="store_true",
+                    help="print the statistics panel instead of lines")
+    fr.add_argument("--top", type=int, default=8,
+                    help="top-N entries per stats counter (default 8)")
+    fr.add_argument("-o", "--out", type=str, default=None,
+                    help="write matching frames as JSONL instead of text")
+    fr.set_defaults(func=cmd_frames)
+
+    dv = sub.add_parser("devices", help="list BladeRF devices")
+    dv.set_defaults(func=cmd_devices)
     return p
 
 
@@ -771,6 +1391,13 @@ def _add_device(parser) -> None:
                         help="torch device (default cuda; without a card "
                              "the command refuses to run unless given "
                              "--device cpu)")
+
+
+def _add_sdr_device(parser) -> None:
+    parser.add_argument("--sdr-device", type=str, default=None,
+                        metavar="SERIAL",
+                        help="BladeRF serial to open (the reference's "
+                             "--device; here --device is the torch device)")
 
 
 def main(argv=None) -> int:

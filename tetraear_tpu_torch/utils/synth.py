@@ -320,6 +320,36 @@ def planted(carriers: dict, sample_rate_hz: float = 2.4e6,
     return x
 
 
+def planted_scan(offsets_hz=(-300e3, 0.0, 475e3)) -> tuple:
+    """The scanner's planted capture at 2.4 MS/s: the i-th offset (a
+    multiple of 25 kHz) carries "SCAN CH i" (stream seed i + 1) at
+    amplitude 0.1, band-limited to its channel as a transmitter's filter
+    limits it (flat to 11 kHz, a cosine taper to 12.5 kHz; the held
+    symbols of `planted` alone spread sidelobes over the whole band),
+    over complex noise of 0.01 per sample.  In the scanner's 4096-point
+    spectra a carrier peaks near -40 dBFS, its neighbours' bins stay
+    under the -70 dBFS hot-channel gate and the floor sits near -81
+    dBFS, so that the planted channels, and only they, are validated.
+    32 frames span one `scan --wideband` capture of 1 << 20 samples.
+    Returns (x complex64, {offset_hz: "[TXT] SCAN CH i"})."""
+    fs = 2.4e6
+    x = None
+    for i, off in enumerate(offsets_hz):
+        y = planted({0.0: (i + 1, f"SCAN CH {i}")}, fs, num_frames=32)
+        f = np.abs(np.fft.fftfreq(len(y), 1.0 / fs))
+        mask = 0.5 - 0.5 * np.cos(np.pi * np.clip((12.5e3 - f) / 1.5e3,
+                                                  0.0, 1.0))
+        y = np.fft.ifft(np.fft.fft(y) * mask) * 0.1
+        y = y * np.exp(2j * np.pi * float(off) * np.arange(len(y)) / fs)
+        x = y if x is None else x + y
+    noise = np.random.default_rng(0).standard_normal((2, len(x)))
+    x = x + (0.01 / np.sqrt(2)) * (noise[0] + 1j * noise[1]).astype(
+        np.complex64)
+    return (x.astype(np.complex64),
+            {float(off): f"[TXT] SCAN CH {i}"
+             for i, off in enumerate(offsets_hz)})
+
+
 def planted_wideband(grid_indices, num_carriers: int = 16,
                      sample_rate_hz: float = 2.4e6,
                      num_frames: int = 4) -> tuple:
