@@ -131,10 +131,34 @@ Phases (each prints its results; the first failure exits nonzero):
               all 95 channels hot) and its host decode, and the stepped
               scan per probed channel with its SignalProcessor
               construction
+  7. pod      the pod-scale receive (tetraear_tpu_torch/parallel/), run
+              after 4c and before the timing: on captures of C = 96
+              channels (carrier_grid(96); the real-pair step on the
+              25 kHz-multiple grid) and 8,320,000 samples (real-pair
+              8,311,680), SDS texts and downlink cells planted on
+              channels 5, 48 and 90: (c) K5 against its plain version
+              within TOL at the shard starts (-17,160 and the last shard's
+              4,142,840; C = 96 and 48); (a) a world of one rank (nccl,
+              (1, 1) mesh): `ShardedReceiver`, `build_sharded_step_fused`,
+              `build_sharded_step_realpair` and `ShardedDownlinkReceiver`,
+              each path with the launch counts set to 0 just before and
+              read just after (K5 on the staged and etsi paths), each text
+              and cell decoded on its channel, every sync emitted once,
+              the owned interiors equal to the unsharded frontends' and
+              MulticarrierDownlinkReceiver.demodulate's (planted channels
+              bit-equal, the others >= 0.995, LLRs within 1e-3), and each
+              step's time (CUDA events, busy share) beside the unsharded
+              frontend on the same block; (b) nccl's answer to 4 ranks on
+              the one card, then 4 ranks over gloo, (2, 2) mesh, every
+              rank on cuda:0, each launching K5: the gathered results
+              equal to (a)'s on owned interiors, best phases equal, and
+              each step's time with its exchange share (four ranks on one
+              card: not a scaling number); (d) `entry(device)` (counted,
+              K5) and `dryrun_multichip(1, "cuda")`
 
 The line before the last is a JSON object with each kernel's route,
-source, launches in phases 4 to 5, error, times and bound; the last
-line is {"ok": true, "device": {...}}.
+source, launches in phases 4 to 5 and 7, error, times and bound; the
+last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -2052,6 +2076,551 @@ def phase_timing_single(device, card: str) -> None:
               f"trellis steps) of {batch} block(s): {ms:.3f} ms")
 
 
+# --- 7. pod: the sharded receive (tetraear_tpu_torch/parallel/) -----------
+
+POD_C = 96                   # the full band of one 2.4 MS/s receiver
+POD_T = 8_320_000            # 64,000 x 130 = 20,800 x 400 samples (3.47 s)
+POD_T_RP = 8_311_680         # 1,332 x 6,240: the real-pair step's grid, cut
+                             # into 2 time shards (1,333 x 6,240 is odd)
+POD_PLANTED = (5, 48, 90)    # the pod captures' text channels
+POD_CAPTURES = ("x", "x_rp", "x_cells", "offsets", "offsets_rp")
+POD_STEPS = ("staged", "fused", "realpair")
+POD_HALOS = {"staged": 17_160, "fused": 17_160, "realpair": 18_720,
+             "etsi": 17_200}         # the builders' default halos
+
+
+def pod_captures(c: int = POD_C, n: int = POD_T,
+                 n_rp: int = POD_T_RP) -> dict:
+    """The pod phase's captures at 2.4 MS/s (numpy): "x", the SDS text
+    "[TXT] POD CH k" on channels POD_PLANTED of carrier_grid(c)
+    ("offsets"), "x_rp" the same on the real-pair grid (k - c // 2) x
+    25 kHz ("offsets_rp"), each over complex noise of 0.01 a sample, and
+    "x_cells", ETSI downlink cells on those channels of carrier_grid(c)
+    (utils.synth.planted_cells: MNC 100 + k, "[TXT] CELL k MSG")."""
+    import numpy as np
+    from tetraear_tpu_torch.ops.channelizer import carrier_grid
+    from tetraear_tpu_torch.utils.synth import planted, planted_cells
+    caps = {"offsets": carrier_grid(c),
+            "offsets_rp": ((np.arange(c) - c // 2) * 25e3
+                           ).astype(np.float32)}
+    frames = n // (255 * 130) + 2        # a frame: 255 symbols of 130
+    rng = np.random.default_rng(7)
+    for key, grid, length in (("x", caps["offsets"], n),
+                              ("x_rp", caps["offsets_rp"], n_rp)):
+        x = planted({float(grid[k]): (k, f"POD CH {k}")
+                     for k in POD_PLANTED}, 2.4e6, frames)[:length]
+        noise = rng.standard_normal((2, length)).astype(np.float32)
+        caps[key] = (x + (0.01 / np.sqrt(2)) * (noise[0] + 1j * noise[1])
+                     ).astype(np.complex64)
+    cells, _ = planted_cells(POD_PLANTED, c, slots=n // 34_000 + 2)
+    caps["x_cells"] = cells[:n]
+    return caps
+
+
+def pod_paths(mesh, caps: dict, device, decode: bool) -> tuple:
+    """The four sharded steps on `mesh` through the entry points a user
+    calls, each path with the launch counts set to 0 just before and read
+    just after; K5 must launch on the staged and etsi paths:
+    `ShardedReceiver` (the staged step, its `decode` with decode=True),
+    `build_sharded_step_fused`, `build_sharded_step_realpair` and
+    `ShardedDownlinkReceiver` (the etsi step, its `decode`).  Returns
+    (the global results as numpy, {"staged" / "etsi": frames},
+    launches)."""
+    from tetraear_tpu_torch.parallel.mesh import TIME_AXIS
+    from tetraear_tpu_torch.parallel.sharded import (
+        ShardedDownlinkReceiver, ShardedReceiver, build_sharded_step_fused,
+        build_sharded_step_realpair, gather_result, realpair_shard_inputs,
+        shard_inputs)
+    n_t = mesh.size(TIME_AXIS)
+    t_local = len(caps["x"]) // n_t
+    out, frames = {}, {}
+
+    def keep(tag, res):
+        for k, v in res._asdict().items():
+            out[f"{tag}_{k}"] = v.cpu().numpy()
+
+    def staged():
+        rx = ShardedReceiver(mesh, device=device)
+        res = rx(caps["x"], caps["offsets"])
+        keep("staged", res)
+        if decode:
+            frames["staged"] = rx.decode(res, t_local)
+
+    def fused():
+        xs, _ = shard_inputs(mesh, caps["x"], caps["offsets"], device)
+        run = build_sharded_step_fused(mesh, caps["offsets"], device=device)
+        keep("fused", gather_result(mesh, run(xs)))
+
+    def realpair():
+        run, halo = build_sharded_step_realpair(mesh, device=device)
+        keep("realpair", gather_result(mesh, run(*realpair_shard_inputs(
+            mesh, caps["x_rp"], caps["offsets_rp"], halo, 2.4e6,
+            device=device))))
+
+    def etsi():
+        dl = ShardedDownlinkReceiver(mesh, len(caps["offsets"]),
+                                     device=device)
+        res = dl(caps["x_cells"], caps["offsets"])
+        out["etsi_stitched"] = dl.stitch(res, t_local)
+        out["etsi_best_phase"] = res.best_phase.cpu().numpy()
+        if decode:
+            frames["etsi"] = dl.decode(res, t_local)
+
+    launches = dict.fromkeys(KERNELS, 0)
+    shape = f"({mesh.size('carrier')}, {n_t}) mesh"
+    # K5 on a card; on the cpu the staged chain runs its plain version
+    k5 = "fused_channelize" if device.type == "cuda" else None
+    for tag, wrapper, run in (
+            ("ShardedReceiver (staged step)", k5, staged),
+            ("fused step", None, fused), ("real-pair step", None, realpair),
+            ("ShardedDownlinkReceiver (etsi step)", k5, etsi)):
+        for name, k in _path(f"pod {tag}, {shape}, {device}", wrapper,
+                             run).items():
+            launches[name] += k
+    return out, frames, launches
+
+
+def pod_owned(bits, halo: int, t_local: int, sps: int = 13):
+    """(C, n_time, seg) extended segments -> (C, n_time x own) global
+    stream of each shard's owned bits (ShardedReceiver.decode's region)."""
+    import numpy as np
+    h = 2 * ((halo // 10) // sps)
+    own = 2 * ((t_local // 10) // sps)
+    return np.concatenate([bits[:, k, h:h + own]
+                           for k in range(bits.shape[1])], axis=-1)
+
+
+def pod_agree(tag: str, got, want, edge: int = 16) -> None:
+    """Bits (C, B) against (C, B'), on the common length less `edge` bits
+    at each end of the stream: the planted channels equal, every other at
+    least 0.995 (near-zero symbols flip under another sum order), as the
+    tests and the reference's own hold them."""
+    import numpy as np
+    n = min(got.shape[-1], want.shape[-1]) - edge
+    agree = (got[:, edge:n] == want[:, edge:n]).mean(axis=-1)
+    planted = agree[list(POD_PLANTED)]
+    others = np.delete(agree, list(POD_PLANTED))
+    ok = (planted == 1.0).all() and (others >= 0.995).all()
+    print(f"[pod] {tag}: {n - edge} bits a channel; planted channels "
+          f"{POD_PLANTED} agreement {planted.min():.6f}, the other "
+          f"{len(others)} min {others.min():.6f} mean {others.mean():.6f}: "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("pod", f"{tag}: decisions differ (worst channel "
+                    f"{int(np.argmin(agree))}: {agree.min():.6f})")
+
+
+def pod_soft_agree(tag: str, got, want, edge: int = 200) -> float:
+    """Stitched LLRs (C, B) against (C, B') on the planted channels,
+    `edge` LLRs in from each end of the stream: within 1e-3 (f32
+    rounding behind the channelizer) and the confident signs equal."""
+    import numpy as np
+    n = min(got.shape[-1], want.shape[-1]) - edge
+    a = got[list(POD_PLANTED), edge:n]
+    b = want[list(POD_PLANTED), edge:n]
+    err = float(np.abs(a - b).max())
+    conf = np.abs(b) > 1e-3
+    signs = bool(np.array_equal(np.sign(a)[conf], np.sign(b)[conf]))
+    ok = err <= 1e-3 and signs
+    print(f"[pod] {tag}: planted channels' LLRs max|diff| {err:.3e} "
+          f"(bound 1e-3), confident signs {'equal' if signs else 'DIFFER'}"
+          f": {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("pod", f"{tag}: LLRs differ")
+    return err
+
+
+def pod_frames_check(tag: str, frames: dict) -> None:
+    """ShardedReceiver.decode: every sync emitted once, each planted text
+    on its channel, and no frame of it twice (the host decoder also takes
+    false syncs inside a channel's payload bits, as the reference's does,
+    so frame numbers may repeat on other frames);
+    ShardedDownlinkReceiver.decode: each planted cell's text and identity
+    on its channel."""
+    _check_texts(f"{tag} ShardedReceiver.decode",
+                 {k: f"[TXT] POD CH {k}" for k in POD_PLANTED},
+                 _texts(frames["staged"]))
+    for c, fc in enumerate(frames["staged"]):
+        pos = [f["sync_position"] for f in fc]
+        if len(pos) != len(set(pos)):
+            fail("pod", f"{tag}: channel {c} emitted a sync twice")
+    n = []
+    for k in POD_PLANTED:
+        nums = [f["number"] for f in frames["staged"][k]
+                if f.get("sds_message") == f"[TXT] POD CH {k}"]
+        if len(nums) != len(set(nums)):
+            fail("pod", f"{tag}: channel {k} emitted a frame twice")
+        n.append(len(nums))
+    print(f"[pod] {tag}: ShardedReceiver.decode: {n} frames with their "
+          f"texts on channels {POD_PLANTED}, each once; "
+          f"{sum(map(len, frames['staged']))} frames on all channels, no "
+          "sync position twice")
+    for k in POD_PLANTED:
+        fc = frames["etsi"][k]
+        texts = [f.sds_message for f in fc if f.sds_message]
+        mncs = {f.sync_pdu.mnc for f in fc if f.sync_pdu}
+        ok = f"[TXT] CELL {k} MSG" in texts and mncs == {100 + k}
+        print(f"[pod] {tag}: ShardedDownlinkReceiver.decode channel {k}: "
+              f"{len(fc)} frames, {texts.count(f'[TXT] CELL {k} MSG')} with "
+              f"its text, MNC {sorted(mncs)}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("pod", f"{tag}: cell {k} not decoded")
+
+
+def pod_unsharded(caps: dict, device) -> dict:
+    """The unsharded frontends' bits on the same captures (StagedMulti-
+    carrierFrontend, MulticarrierFrontend(conv="fused"), the real-pair
+    block) and MulticarrierDownlinkReceiver.demodulate's LLRs, numpy."""
+    import torch
+    from tetraear_tpu_torch.models.downlink import (
+        MulticarrierDownlinkReceiver)
+    from tetraear_tpu_torch.models.multicarrier import (
+        MulticarrierFrontend, StagedMulticarrierFrontend, _demod_front)
+    from tetraear_tpu_torch.models.realpair import (_as_pair,
+                                                    _realpair_block,
+                                                    staged_state)
+    x = torch.as_tensor(caps["x"], device=device)
+    ref = {}
+    mc = StagedMulticarrierFrontend.from_offsets(caps["offsets"],
+                                                 device=device)
+    ref["staged"] = _demod_front(mc.channelize(x), mc.sps)[0]
+    mc = MulticarrierFrontend.from_offsets(caps["offsets"], device=device,
+                                           conv="fused")
+    ref["fused"] = mc.demod(*mc.channelize(x))[0]
+    st = staged_state(caps["offsets_rp"], table=True)
+    dev = lambda a: torch.as_tensor(a, device=device)
+    ref["realpair"] = _realpair_block(
+        _as_pair(caps["x_rp"], device), dev(st.table), dev(st.taps_d),
+        dev(st.taps_c), st.decim, 13).bits
+    soft, _counts = MulticarrierDownlinkReceiver(
+        len(caps["offsets"]), device=device).demodulate(caps["x_cells"])
+    ref["etsi"] = soft.reshape(soft.shape[0], -1)
+    return {k: v.cpu().numpy() for k, v in ref.items()}
+
+
+def pod_against(tag: str, got: dict, want: dict, t_total: dict,
+                n_time: int) -> None:
+    """A run's owned interiors against another's (bits, LLRs) and, where
+    `want` holds a run's results too, its best phases."""
+    import numpy as np
+    for step in POD_STEPS:
+        a = pod_owned(got[f"{step}_bits"], POD_HALOS[step],
+                      t_total[step] // n_time)
+        b = want[step] if step in want else want[f"{step}_owned"]
+        pod_agree(f"{tag} {step}", a, b)
+    pod_soft_agree(f"{tag} etsi", got["etsi_stitched"],
+                   want["etsi"] if "etsi" in want else want["etsi_stitched"])
+    for step in (*POD_STEPS, "etsi"):
+        key = f"{step}_best_phase"
+        if key in want:
+            same = (got[key][:, :1] == want[key][:, :1]).all(axis=1)
+            print(f"[pod] {tag} {step}: best phase equal on "
+                  f"{int(same.sum())} of {len(same)} channels"
+                  + ("" if same.all() else
+                     f"; differs on {np.flatnonzero(~same).tolist()}"))
+            if not same.all():
+                fail("pod", f"{tag} {step}: best phases differ")
+        if (got[key] != got[key][:, :1]).any():
+            fail("pod", f"{tag} {step}: best phase differs between the "
+                        "time shards")
+
+
+def pod_k5_starts(device) -> float:
+    """K5 against its plain version (and a float64 oracle of the same f32
+    phases on 256 outputs) at the pod's shard starts: the extended block
+    of the first time shard (start -17,160) and of the last (start
+    4,142,840) of a 2-shard cut, and the (1, 1) mesh's extended block,
+    at C = 96 and at the 48 of each carrier half."""
+    import numpy as np
+    import torch
+    from tetraear_tpu_torch.models.realpair import staged_state
+    from tetraear_tpu_torch.ops.channelizer import carrier_grid
+    from tetraear_tpu_torch.ops.kernels import fused_channelize as k5
+    halo = 17_160
+    half = POD_T // 2
+    state = staged_state(carrier_grid(POD_C))
+    taps = torch.as_tensor(state.taps_d, device=device)
+    fs = state.sample_rate_hz
+    worst = 0.0
+    for lo, hi, n, start in ((0, 96, POD_T + 2 * halo, -halo),
+                             (0, 48, half + 2 * halo, -halo),
+                             (48, 96, half + 2 * halo, half - halo),
+                             (0, 96, half + 2 * halo, half - halo)):
+        offs = torch.as_tensor(state.offsets_hz[lo:hi], device=device)
+        gen = torch.Generator(device=device).manual_seed(start & 0xFFFF)
+        x = torch.randn(n, dtype=torch.complex64, device=device,
+                        generator=gen) * 0.1
+        got = _launched("fused_channelize", lambda: k5.fused_channelize(
+            x, offs, fs, state.decim, taps, start))
+        want = k5.fused_channelize_plain(x, offs, fs, state.decim, taps,
+                                         start)
+        m_idx = np.random.default_rng(n).choice(got.shape[1], 256,
+                                                replace=False)
+        oracle = _k5_oracle(x, offs, taps, fs, state.decim, start, m_idx)
+        err = np.abs(got[:, m_idx].cpu().numpy() - oracle).max()
+        tag = (f"K5 pod shard C={hi - lo} (channels {lo}..{hi - 1}) "
+               f"n={n} start={start}")
+        print(f"[kernel] {tag}: on 256 outputs max|K5-f64 oracle| = "
+              f"{err:.3e}")
+        worst = max(worst, _held(tag, "K5", got, want, TOL))
+        del x, got, want
+    return worst
+
+
+def _pod_steps(mesh, caps: dict, device) -> dict:
+    """step -> (this rank's step, its local inputs), made once, for the
+    timing."""
+    from tetraear_tpu_torch.parallel.sharded import (
+        build_sharded_step, build_sharded_step_etsi, build_sharded_step_fused,
+        build_sharded_step_realpair, realpair_shard_inputs, shard_inputs)
+    xs, offs = shard_inputs(mesh, caps["x"], caps["offsets"], device)
+    xe, _ = shard_inputs(mesh, caps["x_cells"], caps["offsets"], device)
+    run_rp, halo_rp = build_sharded_step_realpair(mesh, device=device)
+    rp_in = realpair_shard_inputs(mesh, caps["x_rp"], caps["offsets_rp"],
+                                  halo_rp, 2.4e6, device=device)
+    run_e, _ = build_sharded_step_etsi(mesh, device=device)
+    return {"staged": (build_sharded_step(mesh, device=device), (xs, offs)),
+            "fused": (build_sharded_step_fused(mesh, caps["offsets"],
+                                               device=device), (xs,)),
+            "realpair": (run_rp, rp_in), "etsi": (run_e, (xe, offs))}
+
+
+def pod_timing_11(mesh, caps: dict, device, card: str) -> dict:
+    """7e at the (1, 1) mesh: each step, CUDA events, on one 8.32 M-sample
+    block already on the card, beside the unsharded frontend on the same
+    block (the gap: the halo concat, the psum and the gather, which are
+    no-ops of one rank), with its torch.profiler busy share."""
+    import torch
+    from tetraear_tpu_torch.models.downlink import (
+        MulticarrierDownlinkReceiver)
+    from tetraear_tpu_torch.models.multicarrier import (
+        MulticarrierFrontend, StagedMulticarrierFrontend, _demod_front)
+    from tetraear_tpu_torch.models.realpair import (_as_pair,
+                                                    _realpair_block,
+                                                    staged_state)
+    from tetraear_tpu_torch.parallel.sharded import gather_result
+    steps = _pod_steps(mesh, caps, device)
+    x, xe = steps["staged"][1][0], steps["etsi"][1][0]
+    staged = StagedMulticarrierFrontend.from_offsets(caps["offsets"],
+                                                     device=device)
+    fused = MulticarrierFrontend.from_offsets(caps["offsets"], device=device,
+                                              conv="fused")
+    st = staged_state(caps["offsets_rp"], table=True)
+    dev = lambda a: torch.as_tensor(a, device=device)
+    x_ri, table = _as_pair(caps["x_rp"], device), dev(st.table)
+    taps_d, taps_c = dev(st.taps_d), dev(st.taps_c)
+    dl = MulticarrierDownlinkReceiver(len(caps["offsets"]), device=device)
+    unsharded = {
+        "staged": lambda: _demod_front(staged.channelize(x), staged.sps),
+        "fused": lambda: fused.demod(*fused.channelize(x)),
+        "realpair": lambda: _realpair_block(x_ri, table, taps_d, taps_c,
+                                            st.decim, 13),
+        "etsi": lambda: dl.demodulate(xe)}
+    names = {"staged": "StagedMulticarrierFrontend channelize + demod front",
+             "fused": "MulticarrierFrontend(conv='fused') channelize + demod",
+             "realpair": "the real-pair block (k = 0)",
+             "etsi": "MulticarrierDownlinkReceiver.demodulate"}
+    times = {}
+    for step, (run, args) in steps.items():
+        fn = lambda run=run, args=args: gather_result(mesh, run(*args))
+        ms = _time_ms(fn, 5, warmup=1)
+        ref_ms = _time_ms(unsharded[step], 5, warmup=1)
+        peak = _peak_mib(fn)
+        busy_ms, top = _device_busy_ms(fn, iters=2)
+        busy = ("not measured" if busy_ms is None else
+                f"{busy_ms:.3f} ms ({busy_ms / ms:.1%}); top kernel "
+                f"{top[0][1]:.3f} ms {top[0][0][:50]}")
+        n = (caps["x_rp"] if step == "realpair" else x).shape[0]
+        times[step] = {"ms": ms, "unsharded_ms": ref_ms}
+        print(f"[timing] {card}: pod {step} step, (1, 1) mesh, C = "
+              f"{len(caps['offsets'])}, n = {n}: {ms:.3f} ms per block = "
+              f"{n / (ms / 1e3):,.0f} samples/s; {names[step]} on the same "
+              f"block {ref_ms:.3f} ms (step - unsharded {ms - ref_ms:+.3f} "
+              f"ms); peak device memory {peak:.0f} MiB; device busy {busy}")
+    return times
+
+
+def _pod_rank_timing(mesh, caps: dict, device) -> dict:
+    """7e in every rank of the (2, 2) world (the collectives need them
+    all): each step with its gather, host clock around synchronized
+    calls, and the exchange alone (the halo exchange of the block and
+    the gather of the step's result)."""
+    import torch
+    from tetraear_tpu_torch.parallel.halo import extend_with_halo
+    from tetraear_tpu_torch.parallel.sharded import gather_result
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    def host_ms(fn, iters=3):
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        sync()
+        return (time.perf_counter() - t0) / iters * 1e3
+
+    times = {}
+    for step, (run, args) in _pod_steps(mesh, caps, device).items():
+        ms = host_ms(lambda: gather_result(mesh, run(*args)))
+        local = run(*args)
+        halo = POD_HALOS[step]
+
+        def exchange():
+            extend_with_halo(args[0], halo, halo, mesh)
+            gather_result(mesh, local)
+        before = mesh.staged_bytes
+        exchange()
+        staged = mesh.staged_bytes - before
+        times[step] = {"ms": ms, "exchange_ms": host_ms(exchange),
+                       "staged_bytes": staged}
+    return times
+
+
+def _pod_rank(tmp: str) -> None:
+    """A rank of 7b's world (4 ranks on the one card, gloo): the four
+    steps on a (2, 2) mesh; every rank writes its launch counts, rank 0
+    the gathered results and the (2, 2) times."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from tetraear_tpu_torch.entry import rank_device
+    from tetraear_tpu_torch.parallel.mesh import make_mesh
+    tmp = Path(tmp)
+    rank = dist.get_rank()
+    device_type = json.loads((tmp / "pod.json").read_text())["device_type"]
+    device = rank_device(device_type, 0)
+    caps = {k: np.load(tmp / f"{k}.npy") for k in POD_CAPTURES}
+    mesh = make_mesh(2, 2, device_type=device_type)
+    out, _, launches = pod_paths(mesh, caps, device, decode=False)
+    (tmp / f"launches_{rank}.json").write_text(json.dumps(launches))
+    staged_bytes = mesh.staged_bytes
+    times = _pod_rank_timing(mesh, caps, device)
+    if rank == 0:
+        np.savez(tmp / "pod22.npz", **out)
+        (tmp / "times22.json").write_text(json.dumps(
+            {"steps": times, "staged_bytes": staged_bytes}))
+
+
+def _nccl_probe_rank() -> None:
+    """A rank of a 4-rank nccl world on the one card: one all_reduce."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    t = torch.ones(1, device="cuda:0")
+    dist.all_reduce(t)
+
+
+def pod_nccl_probe() -> None:
+    """7b: nccl takes one rank a card; show what it says to four ranks on
+    the one card."""
+    from tetraear_tpu_torch.entry import RankFailed, launch
+    try:
+        launch(4, "cuda", _nccl_probe_rank, backend="nccl", timeout=150)
+    except RankFailed as e:
+        lines = [ln.strip() for ln in str(e).splitlines()
+                 if "Duplicate GPU" in ln or "ncclInvalidUsage" in ln
+                 or "Error" in ln]
+        print("[pod] nccl, 4 ranks on one card: refused: "
+              + (" | ".join(dict.fromkeys(lines)) or str(e)[:400])[:600])
+        return
+    print("[pod] nccl, 4 ranks on one card: accepted (the run goes on "
+          "over gloo all the same)")
+
+
+def pod_four_ranks(caps: dict, device_type: str, tmp: Path) -> tuple:
+    """7b: 4 ranks on the one card over gloo, (2, 2) mesh; returns
+    (rank 0's gathered results, every rank's launches, the (2, 2)
+    times)."""
+    import numpy as np
+    from tetraear_tpu_torch.entry import launch
+    for k in POD_CAPTURES:
+        np.save(tmp / f"{k}.npy", caps[k])
+    (tmp / "pod.json").write_text(json.dumps({"device_type": device_type}))
+    launch(4, device_type, _pod_rank, str(tmp), backend="gloo",
+           timeout=600)
+    got = dict(np.load(tmp / "pod22.npz"))
+    ranks = [json.loads((tmp / f"launches_{r}.json").read_text())
+             for r in range(4)]
+    return got, ranks, json.loads((tmp / "times22.json").read_text())
+
+
+def phase_pod(device, card: str) -> tuple:
+    """7: the pod-scale receive (module docstring); returns (launches of
+    the main paths, K5's largest error at the shard starts)."""
+    import numpy as np
+    import torch.distributed as dist
+    from tetraear_tpu_torch.entry import dryrun_multichip, entry
+    from tetraear_tpu_torch.parallel.distributed import (
+        initialize_distributed)
+    from tetraear_tpu_torch.parallel.mesh import make_mesh
+    t0 = time.perf_counter()
+    caps = pod_captures()
+    print(f"[pod] captures: C = {POD_C}, n = {POD_T} (real-pair "
+          f"{POD_T_RP}), texts on channels {POD_PLANTED}, made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    k5_err = pod_k5_starts(device)
+
+    # (a) a world of one rank, nccl, (1, 1) mesh
+    initialize_distributed("cuda")
+    mesh = make_mesh(1, 1, device_type="cuda")
+    print(f"[pod] world of {dist.get_world_size()}, {dist.get_backend()}: "
+          f"{mesh}")
+    got, frames, launches = pod_paths(mesh, caps, device, decode=True)
+    pod_frames_check("(1, 1)", frames)
+    ref = pod_unsharded(caps, device)
+    t_total = {"staged": POD_T, "fused": POD_T, "realpair": POD_T_RP}
+    pod_against("(1, 1) against the unsharded frontends", got, ref,
+                t_total, 1)
+    pod_timing_11(mesh, caps, device, card)
+    dist.destroy_process_group()
+
+    # (b) 4 ranks on the one card, (2, 2) mesh
+    pod_nccl_probe()
+    with tempfile.TemporaryDirectory() as tmp:
+        got22, ranks, times = pod_four_ranks(caps, "cuda", Path(tmp))
+    for r, counts in enumerate(ranks):
+        if counts["fused_channelize"] == 0:
+            fail("pod", f"rank {r} of the (2, 2) world never launched K5")
+    print(f"[pod] (2, 2), 4 ranks, gloo: K5 launches by rank "
+          f"{[c['fused_channelize'] for c in ranks]}; bytes staged between "
+          f"the card and the host by the steps' collectives "
+          f"{times['staged_bytes']:,} (rank 0)")
+    want = dict(got)
+    for step in POD_STEPS:
+        want[f"{step}_owned"] = pod_owned(got[f"{step}_bits"],
+                                          POD_HALOS[step], t_total[step])
+    pod_against("(2, 2) against (1, 1)", got22, want, t_total, 2)
+    for step, t in times["steps"].items():
+        print(f"[timing] {card}: pod {step} step, (2, 2) mesh, four ranks "
+              f"sharing one card over host-staged gloo (not a scaling "
+              f"number): {t['ms']:.3f} ms per block with the gather (rank "
+              f"0, host clock); the exchange alone (halo exchange of the "
+              f"block + gather of the result) {t['exchange_ms']:.3f} ms = "
+              f"{t['exchange_ms'] / t['ms']:.1%}, {t['staged_bytes']:,} "
+              f"bytes staged a call")
+
+    # (d) the entry points
+    def run_entry():
+        fn, args = entry(device)
+        res = fn(*args)
+        if not all(np.isfinite(v.float().cpu().numpy()).all()
+                   for v in res):
+            fail("pod", "entry() gave non-finite values")
+        print(f"[pod] entry({device}): "
+              f"{ {k: tuple(v.shape) for k, v in res._asdict().items()} }")
+    for name, k in _path("pod entry()", "fused_channelize",
+                         run_entry).items():
+        launches[name] += k
+    t1 = time.perf_counter()
+    dryrun_multichip(1, "cuda")
+    print(f"[pod] dryrun_multichip(1, 'cuda'): ok in "
+          f"{time.perf_counter() - t1:.1f} s")
+    return launches, k5_err
+
+
 def main() -> int:
     card = phase_device()
     import os
@@ -2079,6 +2648,11 @@ def main() -> int:
         launches[name] += n
     for name, n in phase_operator(device).items():
         launches[name] += n
+    t_pod = time.perf_counter()
+    pod_launches, k5_pod_err = phase_pod(device, card)
+    for name, n in pod_launches.items():
+        launches[name] += n
+    errs["fused_channelize"] = max(errs["fused_channelize"], k5_pod_err)
     t4 = time.perf_counter()
     t = phase_timing(device, card)
     t5 = time.perf_counter()
@@ -2089,7 +2663,8 @@ def main() -> int:
     phase_timing_operator(device, card)
     print(f"[timing] phases: build {t1 - t0:.1f} s, kernel {t2 - t1:.1f} s, "
           f"decode {t3 - t2:.1f} s, single + downlink + operator "
-          f"{t4 - t3:.1f} s, timing {t5 - t4:.1f} s, single timing "
+          f"{t_pod - t3:.1f} s, pod {t4 - t_pod:.1f} s, timing "
+          f"{t5 - t4:.1f} s, single timing "
           f"{t6 - t5:.1f} s, downlink timing {t7 - t6:.1f} s, operator "
           f"timing {time.perf_counter() - t7:.1f} s")
     times = {"s2d_conv": "k1_f32", "s2d_conv_bf16": "k1_bf16",

@@ -86,7 +86,8 @@ for name in ("models.downlink", "models.uplink", "ops.rm3014",
              "audio.blocks", "audio.voice", "signal.detector",
              "signal.scanner", "ui.capture_loop", "ui.tui", "ui.session",
              "ui.waterfall", "io.capture", "io.frames_query",
-             "utils.metrics"):
+             "utils.metrics", "parallel.mesh", "parallel.halo",
+             "parallel.distributed", "parallel.sharded", "entry"):
     assert "tetraear_tpu_torch." + name in names, name
 
 def run(*argv):

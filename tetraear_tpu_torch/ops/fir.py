@@ -5,7 +5,8 @@ The designers are copies of `tetraear_tpu.ops.fir.design_decimation_fir`,
 top, so the port keeps its own numpy copy.  tests/unit/test_torch_ops.py
 and test_torch_receiver.py hold them `array_equal` to the reference.
 `fir_decimate` and `fir_filter_same` are the reference's strided real
-convolutions as F.conv1d, in f32.
+convolutions as F.conv1d, in f32; `fir_decimate_halo` is their
+overlap-save form for a time-sharded block.
 """
 
 from __future__ import annotations
@@ -115,3 +116,20 @@ def fir_decimate(x: torch.Tensor, taps, decim: int) -> torch.Tensor:
 def fir_filter_same(x: torch.Tensor, taps) -> torch.Tensor:
     """Zero-phase 'same' FIR filter (stride 1)."""
     return fir_decimate(x, taps, 1)
+
+
+def fir_decimate_halo(x: torch.Tensor, taps, decim: int,
+                      left_halo: torch.Tensor, right_halo: torch.Tensor
+                      ) -> torch.Tensor:
+    """Overlap-save fir_decimate: the neighbours' G = (L-1)//2 samples on
+    each side take the place of the zero padding, so a sharded block's
+    outputs equal the unsharded ones.  The block's length is a multiple
+    of decim; the halos have G samples each."""
+    xp = torch.cat([left_halo, x, right_halo], dim=-1)
+    squeeze = xp.dim() == 1
+    if squeeze:
+        xp = xp[None, :]
+    b = xp.shape[0]
+    ri = _conv1d_real(torch.cat([xp.real, xp.imag]), taps, decim, (0, 0))
+    y = torch.complex(ri[:b], ri[b:])
+    return y[0] if squeeze else y
