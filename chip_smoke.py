@@ -155,9 +155,28 @@ Phases (each prints its results; the first failure exits nonzero):
               each step's time with its exchange share (four ranks on one
               card: not a scaling number); (d) `entry(device)` (counted,
               K5) and `dryrun_multichip(1, "cuda")`
+  8. tools    the port's twins of the repo's tools
+              (tetraear_tpu_torch/tools/), each path with the launch
+              counts set to 0 just before and read just after:
+              `sensitivity_sweep` at its defaults (12 slots, 3 seeds, 8
+              SNRs) on the card and with --device cpu, every slot's CRC
+              verdict equal at every SNR and the curve the JAX slow test
+              pins (>= 0.9 at -6 and -12 dB, <= 0.5 at -16 dB), ms per SNR
+              point; `make_fixture` (a 48-frame capture, and its bytes
+              equal to a second run's); the four capture tools
+              (continuous_capture, listen_clear, auto_capture,
+              decrypt_capture) on clean.cf32 and encrypted.cf32 and
+              continuous_capture on the 48-frame capture, every file they
+              write equal to --device cpu's, ms per 262,144-sample chunk;
+              `bench_scaling` spawned as a user runs it (one rank over
+              nccl through entry.launch), then in a started world of one,
+              --profile ref and etsi at the default block and at
+              8,320,000 samples a rank, samples/s, each run launching K5,
+              and K5 at each run's shape (C = 1 at -12.5 kHz, the block
+              plus its halos from start -halo) against its plain version
 
 The line before the last is a JSON object with each kernel's route,
-source, launches in phases 4 to 5 and 7, error, times and bound; the
+source, launches in phases 4 to 5, 7 and 8, error, times and bound; the
 last line is {"ok": true, "device": {...}}.
 """
 
@@ -2621,6 +2640,236 @@ def phase_pod(device, card: str) -> tuple:
     return launches, k5_err
 
 
+# --- 8. tools: the port's twins of the repo's tools/*.py --------------------
+
+TOOL_FIXTURES = ("clean.cf32", "encrypted.cf32")
+TOOL_CHUNK = 256 * 1024        # the capture tools' CaptureLoop chunk
+TOOL_BLOCKS = (1040 * 130, POD_T)   # bench_scaling's default, phase 7's
+K5_TOOL_HALOS = {"ref": 17_160, "etsi": 1_600}
+RUN_ID = re.compile(rb"\d{8}_\d{6}")
+
+
+def _tool_check(tag: str, cond: bool, msg: str) -> None:
+    print(f"[tools] {tag}: {msg}: {'ok' if cond else 'FAIL'}")
+    if not cond:
+        fail("tools", f"{tag}: {msg}")
+
+
+def _tool_out(main, argv: list, **kwargs) -> tuple:
+    """(exit code, stdout lines) of a tool's main(argv)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv, **kwargs)
+    return rc, buf.getvalue().splitlines()
+
+
+def _tool_files(root: Path) -> dict:
+    """{name: bytes} of every file a tool wrote under root, run ids cut."""
+    return {RUN_ID.sub(b"RUN", str(p.relative_to(root)).encode()):
+            RUN_ID.sub(b"RUN", p.read_bytes())
+            for p in sorted(root.rglob("*")) if p.is_file()}
+
+
+def tools_sweep(card: str) -> None:
+    """sensitivity_sweep at its defaults on the card and on the cpu."""
+    import torch
+    from tetraear_tpu_torch.tools import sensitivity_sweep as ss
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        rows, verdicts, ms = [], [], []
+        t = time.perf_counter()
+        for row, v in ss.sweep(device=dev):
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            now = time.perf_counter()
+            ms.append((now - t) * 1e3)
+            t = now
+            rows.append(row)
+            verdicts.append(v)
+        runs[dev] = rows, verdicts, ms
+    rows, verdicts, ms = runs["cuda"]
+    for row, v, v_cpu, t_card, t_cpu in zip(rows, verdicts, runs["cpu"][1],
+                                           ms, runs["cpu"][2]):
+        print(f"[tools] sensitivity_sweep {json.dumps(row)}; slots passed "
+              f"per seed {[sum(map(bool, s)) for s in v]}")
+        _tool_check(f"sensitivity_sweep {row['snr_wideband_db']} dB",
+                    v == v_cpu, "every slot's CRC verdict equal to "
+                                "--device cpu's")
+        print(f"[timing] {card}: sensitivity_sweep "
+              f"{row['snr_wideband_db']} dB (3 seeds of 12 slots, "
+              f"DownlinkReceiver.receive each): {t_card:.1f} ms on the "
+              f"card, {t_cpu:.1f} ms with --device cpu")
+    _tool_check("sensitivity_sweep", rows == runs["cpu"][0],
+                "JSON lines equal to --device cpu's")
+    rate = {r["snr_wideband_db"]: r["crc_pass_rate"] for r in rows}
+    _tool_check("sensitivity_sweep", rate[-6] >= 0.9 and rate[-12] >= 0.9
+                and rate[-16] <= 0.5, f"the pinned curve (-6 dB "
+                f"{rate[-6]}, -12 dB {rate[-12]} >= 0.9; -16 dB "
+                f"{rate[-16]} <= 0.5)")
+
+
+def tools_captures(tmp: Path, card: str) -> None:
+    """make_fixture, then the four capture tools on the card and with
+    --device cpu on the conformance fixtures and a 48-frame capture."""
+    import os
+    import numpy as np
+    import torch
+    from tetraear_tpu_torch.tools import (auto_capture, continuous_capture,
+                                          decrypt_capture, listen_clear,
+                                          make_fixture)
+    fixtures = Path(__file__).resolve().parent / "tests" / "conformance" / \
+        "fixtures"
+    keys = Path(__file__).resolve().parent / "keys.example.txt"
+    long_iq = tmp / "long.cf32"
+    for out in (long_iq, tmp / "again.cf32"):
+        rc, lines = _tool_out(make_fixture.main,
+                              [str(out), "--frames", "48"])
+        _tool_check("make_fixture", rc == 0, f"exit {rc}: {lines[-1]}")
+    _tool_check("make_fixture", long_iq.read_bytes()
+                == (tmp / "again.cf32").read_bytes(), "its IQ the same "
+                "bytes in a second run")
+    cases = [(tool, [str(fixtures / f)]) for f in TOOL_FIXTURES
+             for tool in ("continuous_capture", "listen_clear",
+                          "auto_capture", "decrypt_capture")]
+    cases.append(("continuous_capture", [str(long_iq)]))
+    modules = {"continuous_capture": continuous_capture,
+               "listen_clear": listen_clear, "auto_capture": auto_capture,
+               "decrypt_capture": decrypt_capture}
+    extra = {"auto_capture": ["--attempts", "1", "--chunks-per-attempt",
+                              "4", "--key-file", str(keys)],
+             "decrypt_capture": ["-k", str(keys)]}
+    here = os.getcwd()
+    try:
+        for k, (tool, iq) in enumerate(cases):
+            argv = ["--iq-file", *iq, *extra.get(tool, [])]
+            chunks = -(-np.fromfile(iq[0], np.complex64).size // TOOL_CHUNK)
+            got = {}
+            for dev in ("cuda", "cpu"):
+                cwd = tmp / f"{k}-{dev}"
+                cwd.mkdir()
+                os.chdir(cwd)
+                t0 = time.perf_counter()
+                rc, lines = _tool_out(modules[tool].main,
+                                      [*argv, "--device", dev])
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                got[dev] = (rc, [RUN_ID.sub(b"RUN", line.encode())
+                                 for line in lines], _tool_files(cwd))
+                print(f"[timing] {card}: {tool} {Path(iq[0]).name} "
+                      f"--device {dev}: {ms:.1f} ms for {chunks} chunk(s) "
+                      f"= {ms / chunks:.1f} ms per 262,144-sample chunk, "
+                      f"the loop's setup included")
+            files = got["cuda"][2]
+            _tool_check(f"{tool} {Path(iq[0]).name}",
+                        got["cuda"] == got["cpu"], f"exit {got['cuda'][0]}, "
+                        f"printed lines and {len(files)} files "
+                        f"({sum(map(len, files.values()))} bytes) equal to "
+                        f"--device cpu's")
+            if tool == "continuous_capture":
+                frames = sum(v.count(b"\n") for n, v in files.items()
+                             if n.endswith(b".jsonl"))
+                _tool_check(f"{tool} {Path(iq[0]).name}", frames > 0,
+                            f"{frames} frames logged")
+    finally:
+        os.chdir(here)
+
+
+def tools_bench(device, card: str) -> tuple:
+    """bench_scaling spawned as a user runs it, then in a started world of
+    one rank (counted: each run must launch K5), and K5 at each run's
+    shape against its plain version; returns (launches, K5's largest
+    error)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from tetraear_tpu_torch.config import ReceiverConfig
+    from tetraear_tpu_torch.ops.kernels import fused_channelize as k5
+    from tetraear_tpu_torch.parallel.distributed import (
+        initialize_distributed)
+    from tetraear_tpu_torch.parallel.sharded import _staged_taps
+    from tetraear_tpu_torch.tools import bench_scaling as bs
+    t0 = time.perf_counter()
+    rc, lines = _tool_out(bs.main, ["--iters", "2"])
+    _tool_check("bench_scaling, spawned (entry.launch, nccl)", rc == 0 and
+                lines[0] == "# backend=cuda devices=1" and len(lines) == 2,
+                f"{lines} in {time.perf_counter() - t0:.1f} s")
+    cfg = ReceiverConfig()
+    taps, _ = _staged_taps(cfg, device)
+    launches = None
+    worst = 0.0
+    initialize_distributed("cuda")
+    try:
+        for profile in ("ref", "etsi"):
+            for block in TOOL_BLOCKS:
+                argv = ["--profile", profile, "--per-device-samples",
+                        str(block)]
+                out = {}
+
+                def run():
+                    out["rc"], out["lines"] = _tool_out(bs.main, argv)
+                counts = _path(f"bench_scaling --profile {profile} "
+                               f"--per-device-samples {block}",
+                               "fused_channelize", run)
+                launches = counts if launches is None else {
+                    k: launches[k] + v for k, v in counts.items()}
+                row = json.loads(out["lines"][-1])
+                _tool_check(f"bench_scaling {profile} {block}",
+                            out["rc"] == 0 and row["mesh"] == [1, 1]
+                            and row["samples_per_sec"] > 0,
+                            f"exit {out['rc']}, {out['lines']}")
+                print(f"[timing] {card}: bench_scaling --profile {profile} "
+                      f"--per-device-samples {block}, (1, 1) mesh, nccl: "
+                      f"{row['samples_per_sec']:,.1f} samples/s "
+                      f"(= {block / row['samples_per_sec'] * 1e3:.3f} ms "
+                      f"per step, the digest pull included)")
+                # K5 at the run's shape: the block with its zero halos
+                _, _, x, offsets = next(bs.block_inputs(1, block, profile))
+                halo = K5_TOOL_HALOS[profile]
+                xe = torch.zeros(x.size + 2 * halo, dtype=torch.complex64,
+                                 device=device)
+                xe[halo:halo + x.size] = torch.as_tensor(x, device=device)
+                offs = torch.as_tensor(offsets, device=device)
+                got = _launched("fused_channelize",
+                                lambda: k5.fused_channelize(
+                                    xe, offs, cfg.sample_rate_hz,
+                                    cfg.decimation_factor, taps, -halo))
+                want = k5.fused_channelize_plain(
+                    xe, offs, cfg.sample_rate_hz, cfg.decimation_factor,
+                    taps, -halo)
+                worst = max(worst, _held(
+                    f"K5 bench_scaling --profile {profile} C=1 "
+                    f"n={xe.numel()} start={-halo}", "K5", got, want, TOL))
+                del xe, got, want
+    finally:
+        dist.destroy_process_group()
+    if not np.isfinite(worst):
+        fail("tools", "K5 gave non-finite values")
+    return launches, worst
+
+
+def phase_tools(device, card: str) -> tuple:
+    """8: the port's tools (module docstring); returns (launches of their
+    paths, K5's largest error at the bench's shapes)."""
+    from tetraear_tpu_torch.ops.kernels import launches as counts
+    t0 = time.perf_counter()
+    total = dict.fromkeys(counts(), 0)
+
+    def add(c):
+        for k, v in c.items():
+            total[k] += v
+    add(_path("sensitivity_sweep", None, lambda: tools_sweep(card)))
+    with tempfile.TemporaryDirectory() as tmp:
+        add(_path("capture tools", None,
+                  lambda: tools_captures(Path(tmp), card)))
+    bench, k5_err = tools_bench(device, card)
+    add(bench)
+    print(f"[tools] phase 8 in {time.perf_counter() - t0:.1f} s")
+    return total, k5_err
+
+
 def main() -> int:
     card = phase_device()
     import os
@@ -2653,6 +2902,11 @@ def main() -> int:
     for name, n in pod_launches.items():
         launches[name] += n
     errs["fused_channelize"] = max(errs["fused_channelize"], k5_pod_err)
+    t_tools = time.perf_counter()
+    tool_launches, k5_tool_err = phase_tools(device, card)
+    for name, n in tool_launches.items():
+        launches[name] += n
+    errs["fused_channelize"] = max(errs["fused_channelize"], k5_tool_err)
     t4 = time.perf_counter()
     t = phase_timing(device, card)
     t5 = time.perf_counter()
@@ -2663,7 +2917,8 @@ def main() -> int:
     phase_timing_operator(device, card)
     print(f"[timing] phases: build {t1 - t0:.1f} s, kernel {t2 - t1:.1f} s, "
           f"decode {t3 - t2:.1f} s, single + downlink + operator "
-          f"{t_pod - t3:.1f} s, pod {t4 - t_pod:.1f} s, timing "
+          f"{t_pod - t3:.1f} s, pod {t_tools - t_pod:.1f} s, tools "
+          f"{t4 - t_tools:.1f} s, timing "
           f"{t5 - t4:.1f} s, single timing "
           f"{t6 - t5:.1f} s, downlink timing {t7 - t6:.1f} s, operator "
           f"timing {time.perf_counter() - t7:.1f} s")

@@ -87,7 +87,13 @@ for name in ("models.downlink", "models.uplink", "ops.rm3014",
              "signal.scanner", "ui.capture_loop", "ui.tui", "ui.session",
              "ui.waterfall", "io.capture", "io.frames_query",
              "utils.metrics", "parallel.mesh", "parallel.halo",
-             "parallel.distributed", "parallel.sharded", "entry"):
+             "parallel.distributed", "parallel.sharded", "entry",
+             "tools.make_fixture", "tools.continuous_capture",
+             "tools.listen_clear", "tools.auto_capture",
+             "tools.decrypt_capture", "tools.analyze_text",
+             "tools.bruteforce_keys", "tools.list_bladerf_devices",
+             "tools.verify_codec", "tools.codec_quality",
+             "tools.sensitivity_sweep", "tools.bench_scaling"):
     assert "tetraear_tpu_torch." + name in names, name
 
 def run(*argv):
