@@ -175,9 +175,23 @@ Phases (each prints its results; the first failure exits nonzero):
               and K5 at each run's shape (C = 1 at -12.5 kHz, the block
               plus its halos from start -halo) against its plain version
 
+  9. comm     the communication audit
+              (tetraear_tpu_torch/tools/comm_analysis.py): in a started
+              world of one (nccl, (1, 1)), with the launch counts set to
+              0 just before and read just after, its three steps (fused,
+              realpair, etsi) at --scale 8 (1,081,600 samples a shard,
+              C = 1), each row printed with the card's name and power
+              limit: permute 0, all-reduce 52 / 52 / 16 bytes, the link
+              unmeasured, t_compute by CUDA events, K5 launched (etsi);
+              K5 at that step's shape (C = 1 at 0 Hz and -25 kHz, start
+              -800) against its plain version; then 4 gloo ranks on the
+              card, the etsi step on the (2, 2) and (1, 4) meshes at
+              --scale 1, every rank's counts by kind, by call, sent and
+              gathered equal to the same ranks' on the CPU
+
 The line before the last is a JSON object with each kernel's route,
-source, launches in phases 4 to 5, 7 and 8, error, times and bound; the
-last line is {"ok": true, "device": {...}}.
+source, launches in phases 4 to 5, 7, 8 and 9, error, times and bound;
+the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -2870,6 +2884,153 @@ def phase_tools(device, card: str) -> tuple:
     return total, k5_err
 
 
+# --- 9. comm: the communication audit (tools/comm_analysis.py's twin) -------
+
+COMM_SCALE = 8               # the audit's default block: 1,081,600 samples
+COMM_MESHES = ((2, 2), (1, 4))
+COMM_STEP = "etsi"           # the four-rank world's step (K5 on the card)
+
+
+def _comm_check(tag: str, cond: bool, msg: str) -> None:
+    print(f"[comm] {tag}: {msg}: {'ok' if cond else 'FAIL'}")
+    if not cond:
+        fail("comm", f"{tag}: {msg}")
+
+
+def comm_world_of_one(card: str) -> dict:
+    """The audit in a started world of one (nccl, (1, 1)), counted: its
+    three steps at --scale 8; returns the launches."""
+    import torch.distributed as dist
+    from tetraear_tpu_torch.parallel.distributed import (
+        initialize_distributed)
+    from tetraear_tpu_torch.tools import comm_analysis as ca
+    argv = ["--devices", "1", "--scale", str(COMM_SCALE)]
+    out = {}
+
+    def run():
+        out["rc"], out["lines"] = _tool_out(ca.main, argv)
+    initialize_distributed("cuda")
+    try:
+        launches = _path("comm_analysis " + " ".join(argv),
+                         "fused_channelize", run)
+    finally:
+        dist.destroy_process_group()
+    rows = [json.loads(line) for line in out["lines"]]
+    _comm_check("comm_analysis, world of one", out["rc"] == 0 and
+                [(r["variant"], r["mesh"]) for r in rows]
+                == [(s, "1x1") for s in ca.STEPS], f"exit {out['rc']}, "
+                f"{len(rows)} rows")
+    want = {"fused": 52, "realpair": 52, "etsi": 16}
+    for r in rows:
+        print(f"[comm] {r['device']}: {json.dumps(r)}")
+        _comm_check(f"{r['variant']} (1, 1)", r["device"] == card
+                    and r["backend"] == "nccl"
+                    and r["link_source"] == "unmeasured"
+                    and r["eff_no_overlap"] is None
+                    and r["t_compute_s"] > 0
+                    and (r["permute_bytes"], r["allreduce_bytes"],
+                         r["other_collective_bytes"])
+                    == (0, want[r["variant"]], 0),
+                    f"the card {r['device']!r}, nccl, link unmeasured, "
+                    f"permute / all-reduce / all-gather bytes "
+                    f"{r['permute_bytes']} / {r['allreduce_bytes']} / "
+                    f"{r['other_collective_bytes']}")
+        print(f"[timing] {card}: comm_analysis {r['variant']} step, (1, 1), "
+              f"C = 1, {r['per_shard_samples']:,} samples a shard: "
+              f"t_compute {r['t_compute_s'] * 1e3:.3f} ms (CUDA events, "
+              f"digest pulled), result gather {r['result_gather_bytes']:,} "
+              f"bytes")
+    return launches
+
+
+def comm_k5(device) -> float:
+    """K5 against its plain version at the (1, 1) etsi step's shape: its
+    block inside its zero halos from start -halo, C = 1 at the audit's
+    0 Hz and at -25 kHz (carrier 0 of the (2, 2) mesh's two)."""
+    import torch
+    from tetraear_tpu_torch.config import ReceiverConfig
+    from tetraear_tpu_torch.ops.kernels import fused_channelize as k5
+    from tetraear_tpu_torch.parallel.sharded import _staged_taps
+    from tetraear_tpu_torch.tools import comm_analysis as ca
+    cfg = ReceiverConfig()
+    taps, _ = _staged_taps(cfg, device)
+    t_local, halo, x, offsets = ca.step_case("etsi", 1, 1, COMM_SCALE)
+    xe = torch.zeros(t_local + 2 * halo, dtype=torch.complex64,
+                     device=device)
+    xe[halo:halo + t_local] = torch.as_tensor(x, device=device)
+    worst = 0.0
+    for offs in (offsets, offsets - 25e3):
+        offs = torch.as_tensor(offs, device=device)
+        got = _launched("fused_channelize", lambda: k5.fused_channelize(
+            xe, offs, cfg.sample_rate_hz, cfg.decimation_factor, taps,
+            -halo))
+        want = k5.fused_channelize_plain(xe, offs, cfg.sample_rate_hz,
+                                         cfg.decimation_factor, taps, -halo)
+        worst = max(worst, _held(
+            f"K5 comm_analysis etsi step C=1 at {float(offs[0]):.0f} Hz "
+            f"n={xe.numel()} start={-halo}", "K5", got, want, TOL))
+    return worst
+
+
+def _comm_rank(tmp: str) -> None:
+    """A rank of a 4-rank gloo world on the one card: the audit's counts
+    of one step on each mesh of COMM_MESHES, on the card and on the CPU,
+    written to counts_<rank>.json."""
+    import torch.distributed as dist
+    from tetraear_tpu_torch.entry import rank_device
+    from tetraear_tpu_torch.parallel.mesh import make_mesh
+    from tetraear_tpu_torch.tools import comm_analysis as ca
+    rank = dist.get_rank()
+    counts = {}
+    for carrier, time_ in COMM_MESHES:
+        t_local, halo, x, offsets = ca.step_case(COMM_STEP, carrier, time_,
+                                                 1)
+        for device_type in ("cuda", "cpu"):
+            mesh = make_mesh(carrier, time_, device_type=device_type)
+            run, args = ca.build(mesh, COMM_STEP, halo, x, offsets,
+                                 rank_device(device_type, rank))
+            counts[f"{carrier}x{time_} {device_type}"] = ca.count_step(
+                mesh, run, args)
+    (Path(tmp) / f"counts_{rank}.json").write_text(json.dumps(counts))
+
+
+def comm_four_ranks() -> None:
+    """4 ranks on the one card over gloo: each mesh's per-kind bytes,
+    calls, sent bytes and result gather on the card equal to the same
+    ranks' on the CPU (bytes do not depend on the device)."""
+    from tetraear_tpu_torch.entry import launch
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        launch(4, "cuda", _comm_rank, tmp, backend="gloo", timeout=300)
+        ranks = [json.loads((Path(tmp) / f"counts_{r}.json").read_text())
+                 for r in range(4)]
+    for carrier, time_ in COMM_MESHES:
+        mesh = f"{carrier}x{time_}"
+        card = [c[f"{mesh} cuda"] for c in ranks]
+        cpu = [c[f"{mesh} cpu"] for c in ranks]
+        print(f"[comm] {COMM_STEP} ({carrier}, {time_}), 4 gloo ranks on the "
+              f"card: {json.dumps(card[0]['collective_bytes'])}, calls "
+              f"{json.dumps(card[0]['collectives'])}, sent by rank "
+              f"{[c['sent_bytes'] for c in card]}, result gather "
+              f"{card[0]['result_gather_bytes']:,} B")
+        _comm_check(f"{COMM_STEP} ({carrier}, {time_})", card == cpu
+                    and card[0]["collective_bytes"]["collective-permute"] > 0,
+                    "every rank's counts on the card equal to its counts "
+                    "on the CPU")
+    print(f"[comm] four-rank world in {time.perf_counter() - t0:.1f} s")
+
+
+def phase_comm(device, card: str) -> tuple:
+    """9: the communication audit (module docstring); returns (launches
+    of its path, K5's largest error at the etsi step's shape)."""
+    t0 = time.perf_counter()
+    launches = comm_world_of_one(card)
+    k5_err = comm_k5(device)
+    comm_four_ranks()
+    print(f"[comm] phase 9 in {time.perf_counter() - t0:.1f} s")
+    return launches, k5_err
+
+
 def main() -> int:
     card = phase_device()
     import os
@@ -2907,6 +3068,11 @@ def main() -> int:
     for name, n in tool_launches.items():
         launches[name] += n
     errs["fused_channelize"] = max(errs["fused_channelize"], k5_tool_err)
+    t_comm = time.perf_counter()
+    comm_launches, k5_comm_err = phase_comm(device, card)
+    for name, n in comm_launches.items():
+        launches[name] += n
+    errs["fused_channelize"] = max(errs["fused_channelize"], k5_comm_err)
     t4 = time.perf_counter()
     t = phase_timing(device, card)
     t5 = time.perf_counter()
@@ -2918,7 +3084,7 @@ def main() -> int:
     print(f"[timing] phases: build {t1 - t0:.1f} s, kernel {t2 - t1:.1f} s, "
           f"decode {t3 - t2:.1f} s, single + downlink + operator "
           f"{t_pod - t3:.1f} s, pod {t_tools - t_pod:.1f} s, tools "
-          f"{t4 - t_tools:.1f} s, timing "
+          f"{t_comm - t_tools:.1f} s, comm {t4 - t_comm:.1f} s, timing "
           f"{t5 - t4:.1f} s, single timing "
           f"{t6 - t5:.1f} s, downlink timing {t7 - t6:.1f} s, operator "
           f"timing {time.perf_counter() - t7:.1f} s")

@@ -93,7 +93,8 @@ for name in ("models.downlink", "models.uplink", "ops.rm3014",
              "tools.decrypt_capture", "tools.analyze_text",
              "tools.bruteforce_keys", "tools.list_bladerf_devices",
              "tools.verify_codec", "tools.codec_quality",
-             "tools.sensitivity_sweep", "tools.bench_scaling"):
+             "tools.sensitivity_sweep", "tools.bench_scaling",
+             "tools.comm_analysis"):
     assert "tetraear_tpu_torch." + name in names, name
 
 def run(*argv):

@@ -398,6 +398,90 @@ class TestS2dConv:
                 <= 4e-6 * want.abs().max()).item()
 
 
+# --- the op-level s2d channelizers ---------------------------------------
+
+def _general_kernel(num_carriers):
+    """A composite kernel on offsets off every rotation period (the f32
+    residual-rotation path), with its rotation cycles."""
+    offs = (jch.carrier_grid(num_carriers) + 1234.5678).astype(np.float64)
+    kernel, gc, rot = jfused.fused_kernel(
+        offs, CFG.sample_rate_hz, D, CFG.decim_fir_taps_per_phase,
+        CFG.channel_fir_taps, CUTOFF)
+    return np.asarray(kernel), gc, np.asarray(rot)
+
+
+class TestOpLevelS2dChannelizers:
+    """fused_channelize_s2d / _s2d_ri / _s2d_of_ri against the reference's
+    functions of those names.  Tolerance: the s2d conv's f32 sum order,
+    4e-6 x max|reference| (TestS2dConv); the rotation adds at most a few
+    ulp (its grid table is the same f32 values, its f32 path the same
+    reduced argument through cos / sin instead of exp)."""
+
+    @pytest.mark.parametrize("rotate", [True, False])
+    @pytest.mark.parametrize("grid", ["periodic", "general"])
+    @pytest.mark.parametrize("num_carriers", [4, 16])
+    def test_channelize_s2d(self, num_carriers, grid, rotate):
+        kernel, gc, rot = (_kernel(num_carriers) if grid == "periodic"
+                           else _general_kernel(num_carriers))
+        assert (jfused._rotation_period(rot) > 0) == (grid == "periodic")
+        L = kernel.shape[-1]
+        k2 = np.array(jfused.s2d_kernel(kernel, D))
+        x = _noise(40_007, num_carriers)
+        start = 1_000_003
+        want = np.asarray(jfused.fused_channelize_s2d(
+            jnp.asarray(x), k2, gc, L, rot, D, start_index=start,
+            rotate=rotate))
+        got = tfused.fused_channelize_s2d(torch.from_numpy(x), k2, gc, L,
+                                          rot, D, start_index=start,
+                                          rotate=rotate).numpy()
+        assert got.dtype == want.dtype == np.complex64
+        assert got.shape == want.shape == (num_carriers, -(-40_007 // D))
+        assert np.abs(got - want).max() < 4e-6 * np.abs(want).max()
+
+    @pytest.mark.parametrize("num_carriers", [4, 16])
+    def test_channelize_s2d_ri(self, num_carriers):
+        kernel, gc, _ = _kernel(num_carriers)
+        L = kernel.shape[-1]
+        k2 = np.array(jfused.s2d_kernel(kernel, D))
+        x = _noise(12_345, num_carriers + 1)
+        want = jfused.fused_channelize_s2d_ri(jnp.asarray(x), k2, gc, L, D)
+        got = tfused.fused_channelize_s2d_ri(torch.from_numpy(x),
+                                             torch.from_numpy(k2), gc, L, D)
+        scale = max(np.abs(np.asarray(w)).max() for w in want)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape == (num_carriers, -(-12_345 // D))
+            assert np.abs(g.numpy() - np.asarray(w)).max() < 4e-6 * scale
+
+    @pytest.mark.parametrize("fold", [2, 4])
+    @pytest.mark.parametrize("num_carriers", [4, 16])
+    def test_channelize_s2d_of_ri(self, num_carriers, fold):
+        kernel, gc, _ = _kernel(num_carriers)
+        L = kernel.shape[-1]
+        k_of = np.array(jfused.s2d_of_kernel(kernel, D, fold))
+        x = _noise(40_030, num_carriers + fold)
+        want = jfused.fused_channelize_s2d_of_ri(jnp.asarray(x), k_of, gc, L,
+                                                 D, fold)
+        got = tfused.fused_channelize_s2d_of_ri(torch.from_numpy(x), k_of,
+                                                gc, L, D, fold)
+        scale = max(np.abs(np.asarray(w)).max() for w in want)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape == (num_carriers, 4_003)
+            assert np.abs(g.numpy() - np.asarray(w)).max() < 4e-6 * scale
+
+    @pytest.mark.parametrize("conv", ["s2d", "s2d_of"])
+    def test_frontend_channelize_is_the_op(self, conv):
+        """MulticarrierFrontend.channelize runs the op-level pair forms:
+        the same values, bit for bit."""
+        mc = tmc.MulticarrierFrontend.from_offsets(
+            jch.carrier_grid(4), device="cpu", conv=conv)
+        x = torch.from_numpy(_noise(20_000, 3))
+        args = (mc.gc, mc.L, mc.decim)
+        want = (k1.s2d_conv_plain(x, mc.kernel_s2d, *args) if conv == "s2d"
+                else k1.s2d_conv_of_plain(x, mc.kernel_of, *args, mc.fold))
+        got = torch.cat(mc.channelize(x))
+        assert torch.equal(got, want)
+
+
 # --- demod, sync, CRC: decisions are exact --------------------------------
 
 class TestDemodOps:
@@ -423,6 +507,23 @@ class TestDemodOps:
         assert got.dtype == np.uint8
         np.testing.assert_array_equal(got, want)
         assert got[0] == 3                       # z = 0
+        assert set(np.unique(got)) == {0, 1, 2, 3}
+
+    def test_quantize_phase_alias_exact(self):
+        """quantize_phase is the reference-bins quantizer, as in the
+        reference: equal on a seeded phase grid and on every bin edge."""
+        assert tdq.quantize_phase is tdq.quantize_phase_ref
+        r = np.random.default_rng(13)
+        edges = np.float32([np.pi / 8 * k for k in (-5, -3, 3, 5)])
+        dphi = np.concatenate([
+            np.linspace(-np.pi, np.pi, 4097, dtype=np.float32), edges,
+            np.nextafter(edges, np.float32(0)),
+            np.nextafter(edges, np.float32(np.inf)),
+            r.uniform(-4, 4, 1000).astype(np.float32)])
+        want = np.asarray(jdq.quantize_phase(jnp.asarray(dphi)))
+        got = tdq.quantize_phase(torch.from_numpy(dphi)).numpy()
+        assert got.dtype == np.uint8
+        np.testing.assert_array_equal(got, want)
         assert set(np.unique(got)) == {0, 1, 2, 3}
 
     def test_symbols_to_bits_exact(self):

@@ -112,3 +112,17 @@ def fail_on_rank_1() -> None:
     if dist.get_rank() == 1:
         raise ValueError("rank 1 fails on purpose")
     dist.all_reduce(torch.zeros(1))
+
+
+def link_probe(out_dir: str) -> None:
+    """tools/comm_analysis.link_rate between ranks 0 and 1 of a 2-rank
+    world; rank 0 writes its rate to rate.json."""
+    if _loaded_reference():
+        raise RuntimeError(f"reference modules loaded: {_loaded_reference()}")
+    sys.meta_path.insert(0, RefuseReference())
+    from tetraear_tpu_torch.tools.comm_analysis import link_rate
+    rate = link_rate(4096, torch.device("cpu"), iters=3, warmup=1)
+    if dist.get_rank() == 0:
+        (Path(out_dir) / "rate.json").write_text(json.dumps(rate))
+    elif rate is not None:
+        raise RuntimeError(f"rank 1 returned a rate: {rate}")

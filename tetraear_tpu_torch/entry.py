@@ -13,7 +13,9 @@ timing, the carrier-sharded channelizer.
 ``launch(n, device_type, target, *args)`` is the rank launcher both use:
 n processes by the `spawn` start method, joined through a FileStore in
 a temporary file; the first rank that fails ends the run in every rank
-and raises here with its traceback.
+and raises here with its traceback.  ``world_rows`` runs a tool's
+per-rank function in a started world or in launched ranks and returns
+rank 0's rows (tools/bench_scaling.py, tools/comm_analysis.py).
 
     python -m tetraear_tpu_torch.entry --device cuda|cpu
     torchrun --nproc-per-node N -m tetraear_tpu_torch.entry --device cuda
@@ -27,12 +29,14 @@ world, on cuda:LOCAL_RANK.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import queue
 import sys
 import tempfile
 import time
 import traceback
+from pathlib import Path
 
 import numpy as np
 
@@ -146,6 +150,46 @@ def launch(n: int, device_type: str, target, *args, backend=None,
         errors.close()
         if os.path.exists(store):
             os.unlink(store)
+
+
+def _rows_rank(fn, device_type: str, kwargs: dict, out_dir: str) -> None:
+    """A launched rank of world_rows: rank 0's rows to out_dir/rows.json."""
+    import torch.distributed as dist
+    rows = fn(device_type, **kwargs)
+    if dist.get_rank() == 0:
+        (Path(out_dir) / "rows.json").write_text(json.dumps(rows))
+
+
+def in_a_world() -> bool:
+    """This process's world is started, or a launcher's environment
+    names one."""
+    import torch.distributed as dist
+    from tetraear_tpu_torch.parallel.distributed import LAUNCHER_ENV
+    return dist.is_initialized() or any(k in os.environ
+                                        for k in LAUNCHER_ENV)
+
+
+def world_rows(fn, device_type: str, n: int, kwargs: dict) -> tuple:
+    """(rank 0's rows, the world's size) of fn(device_type, **kwargs), a
+    module-level function that every rank of a world runs and that
+    returns its rows on rank 0 ([] on the others).  Where this process's
+    world is started, or a launcher's environment names one, fn runs in
+    it (a world started here is destroyed after); else in n ranks
+    spawned by `launch`, and this process gets rank 0's rows."""
+    import torch.distributed as dist
+    from tetraear_tpu_torch.parallel.distributed import (
+        initialize_distributed)
+    if in_a_world():
+        started_here = not dist.is_initialized()
+        initialize_distributed(device_type)
+        try:
+            return fn(device_type, **kwargs), dist.get_world_size()
+        finally:
+            if started_here:
+                dist.destroy_process_group()
+    with tempfile.TemporaryDirectory() as tmp:
+        launch(n, device_type, _rows_rank, fn, device_type, kwargs, tmp)
+        return json.loads((Path(tmp) / "rows.json").read_text()), n
 
 
 def dryrun(mesh, device) -> None:

@@ -41,8 +41,8 @@ from tetraear_tpu_torch.ops import dqpsk, fused, pfb, sync
 from tetraear_tpu_torch.ops.channelizer import channelize
 from tetraear_tpu_torch.ops.fir import fir_filter_same
 from tetraear_tpu_torch.ops.kernels.s2d_conv import (
-    check_fold, parse_fold, s2d_conv, s2d_conv_db, s2d_conv_of,
-    s2d_conv_of_plain, s2d_conv_plain, tc_pack, tc_pack_k1)
+    check_fold, parse_fold, s2d_conv, s2d_conv_db, s2d_conv_of, tc_pack,
+    tc_pack_k1)
 from tetraear_tpu_torch.ops.timing import best_phase_pick
 
 
@@ -236,10 +236,11 @@ class MulticarrierFrontend(CandidateStage):
                                              self.decim, rotate=False)
         args = (self.gc, self.L, self.decim)
         if self.conv == "s2d":
-            out = s2d_conv_plain(x, self.kernel_s2d, *args)
-        elif self.conv == "s2d_of":
-            out = s2d_conv_of_plain(x, self.kernel_of, *args, self.fold)
-        elif self.conv == "pallas_db":
+            return fused.fused_channelize_s2d_ri(x, self.kernel_s2d, *args)
+        if self.conv == "s2d_of":
+            return fused.fused_channelize_s2d_of_ri(x, self.kernel_of, *args,
+                                                    self.fold)
+        if self.conv == "pallas_db":
             out = s2d_conv_db(x, self.kernel_s2d, *args)
         else:
             tc = self.tc and self.tc._replace(packed=self.kernel_tc)

@@ -49,6 +49,10 @@ def quantize_phase_etsi(dphi: torch.Tensor) -> torch.Tensor:
     return msb * 2 + lsb
 
 
+# the reference's alias: the "reference bins" quantizer
+quantize_phase = quantize_phase_ref
+
+
 def demodulate_hard(symbols: torch.Tensor, profile: str = "ref"
                     ) -> torch.Tensor:
     """Complex symbol stream -> uint8 dibits (length N-1)."""

@@ -13,6 +13,11 @@ same kind of conv, `ddc_kernel` the mixer and decimating FIR alone.
 `fused_channelize` / `fused_channelize_ri` are the legacy `fused=True`
 form of the same operator: a stride-D F.conv1d of the (2C, 2, L) kernel,
 then the residual rotation at the decimated rate.
+`fused_channelize_s2d`, `fused_channelize_s2d_ri` and
+`fused_channelize_s2d_of_ri` are the reference's op-level s2d
+channelizers, on the plain convs (XLA convs in the reference, not Pallas
+kernels); `MulticarrierFrontend.channelize` runs the two pair forms for
+its `s2d` and `s2d_of` convs.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from tetraear_tpu_torch.ops import fir
+from tetraear_tpu_torch.ops.kernels.s2d_conv import (s2d_conv_of_plain,
+                                                     s2d_conv_plain)
 
 
 @functools.lru_cache(maxsize=None)
@@ -112,9 +119,7 @@ def _strided_conv(x: torch.Tensor, kernel, gc: int, decim: int) -> tuple:
     kernel, m = ceil(N/D) outputs: output m reads x[mD + gc - u]."""
     n = x.shape[-1]
     m_out = -(-n // decim)
-    if not isinstance(kernel, torch.Tensor):        # a writable copy
-        kernel = torch.from_numpy(np.array(kernel, np.float32))
-    k = kernel.to(device=x.device, dtype=torch.float32)
+    k = _weights(kernel, x.device)
     pad_l = k.shape[-1] - 1 - gc
     pad_r = max(0, (m_out - 1) * decim + gc + 1 - n)
     xri = F.pad(torch.stack([x.real, x.imag])[None], (pad_l, pad_r))
@@ -179,6 +184,49 @@ def fused_channelize(x: torch.Tensor, kernel, gc: int, rot_cycles,
     cr, si = _rotation(rot_cycles, gc, decim, y.shape[-1], start_index,
                        x.device)
     return y * torch.complex(cr, -si)
+
+
+def _weights(kernel, device) -> torch.Tensor:
+    """A conv kernel (numpy or tensor) as f32 on `device`."""
+    if not isinstance(kernel, torch.Tensor):        # a writable copy
+        kernel = torch.from_numpy(np.array(kernel, np.float32))
+    return kernel.to(device=device, dtype=torch.float32)
+
+
+def fused_channelize_s2d(x: torch.Tensor, kernel_s2d, gc: int, L: int,
+                         rot_cycles, decim: int, start_index: int = 0,
+                         rotate: bool = True) -> torch.Tensor:
+    """fused_channelize by the space-to-depth stride-1 conv of the
+    (2C, 2D, Lp) kernel (`s2d_kernel`; L the composite's length before
+    padding): x (N,) complex64 -> (C, ceil(N/D)) complex64 carriers, the
+    same operator in another summation order.  rotate=False returns the
+    un-derotated channels (pair with symbol_rotation)."""
+    yr, yi = fused_channelize_s2d_ri(x, kernel_s2d, gc, L, decim)
+    y = torch.complex(yr, yi)
+    if not rotate:
+        return y
+    cr, si = _rotation(rot_cycles, gc, decim, y.shape[-1], start_index,
+                       x.device)
+    return y * torch.complex(cr, -si)
+
+
+def fused_channelize_s2d_ri(x: torch.Tensor, kernel_s2d, gc: int, L: int,
+                            decim: int) -> tuple:
+    """(yr, yi) f32 (C, ceil(N/D)): the un-derotated pair of the s2d conv,
+    the real-pair tail's feed."""
+    out = s2d_conv_plain(x, _weights(kernel_s2d, x.device), gc, L, decim)
+    c = out.shape[0] // 2
+    return out[:c], out[c:]
+
+
+def fused_channelize_s2d_of_ri(x: torch.Tensor, kernel_of, gc: int, L: int,
+                               decim: int, fold: int) -> tuple:
+    """(yr, yi): fused_channelize_s2d_ri's values by the output-folded s2d
+    conv of the (2C fold, 2D, Lp + fold - 1) kernel (`s2d_of_kernel`)."""
+    out = s2d_conv_of_plain(x, _weights(kernel_of, x.device), gc, L, decim,
+                            fold)
+    c = out.shape[0] // 2
+    return out[:c], out[c:]
 
 
 def s2d_kernel(kernel: np.ndarray, decim: int) -> np.ndarray:

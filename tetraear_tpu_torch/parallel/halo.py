@@ -20,14 +20,41 @@ CUDA payload is copied to the host and back by `_to_wire` /
 The compute never leaves the device: only the exchanged edges, the
 carried elements, the psum'd phase powers and the gathered results do.
 Complex tensors travel as their real view.
+
+Every collective is also counted on the mesh as an XLA program's
+collective instruction would state it (`Mesh.collective_bytes`,
+`collective_calls`, `sent_bytes`): a halo side or a carry is one
+collective-permute of its payload's shape and dtype (a complex halo
+counts as c64, the same bytes as its real view), sent or not; a psum is
+one all-reduce, also over a group of one; a gather is one all-gather of
+the gathered shape.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.distributed as dist
 
 from tetraear_tpu_torch.parallel.mesh import CARRIER_AXIS, TIME_AXIS, Mesh
+
+
+_HLO_TYPES = {torch.complex64: "c64", torch.complex128: "c128",
+              torch.float32: "f32", torch.float64: "f64",
+              torch.bfloat16: "bf16", torch.float16: "f16",
+              torch.int32: "s32", torch.int64: "s64", torch.int8: "s8",
+              torch.uint8: "u8", torch.bool: "pred"}
+
+
+def _count(mesh: Mesh, kind: str, x: torch.Tensor, shape: tuple,
+           sent: int) -> None:
+    """Count one collective of `kind` on a `shape` of x's dtype, of which
+    this rank sends `sent` bytes."""
+    dims = ",".join(map(str, shape))
+    mesh.collective_bytes[kind] += math.prod(shape) * x.element_size()
+    mesh.collective_calls[f"{kind} {_HLO_TYPES[x.dtype]}[{dims}]"] += 1
+    mesh.sent_bytes[kind] += sent
 
 
 def _staged(mesh: Mesh, x: torch.Tensor) -> bool:
@@ -72,6 +99,9 @@ def _neighbours(mesh: Mesh, axis: str, to_next, to_prev) -> tuple:
                                              (to_prev, idx - 1, idx + 1))):
         if payload is None:
             continue
+        nbytes = payload.numel() * payload.element_size()
+        _count(mesh, "collective-permute", payload, tuple(payload.shape),
+               nbytes if 0 <= dst < n else 0)
         if 0 <= dst < n:
             ops.append(dist.P2POp(dist.isend, _to_wire(mesh, payload),
                                   peers[dst], group))
@@ -130,7 +160,11 @@ def carry_last(x: torch.Tensor, mesh: Mesh, fill=None,
 
 def psum(x: torch.Tensor, mesh: Mesh, axis: str = TIME_AXIS) -> torch.Tensor:
     """The sum of x over the ranks of this rank's group along `axis`."""
-    if mesh.size(axis) == 1:
+    k = mesh.size(axis)
+    nbytes = x.numel() * x.element_size()
+    # a ring all-reduce puts 2 (k - 1) / k of the buffer on each rank's wire
+    _count(mesh, "all-reduce", x, tuple(x.shape), 2 * (k - 1) * nbytes // k)
+    if k == 1:
         return x
     wire = _to_wire(mesh, x).clone()
     dist.all_reduce(wire, group=mesh.groups[axis])
@@ -142,6 +176,8 @@ def gather_global(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     every rank as the global (C, n_time, ...): rank c * n_time + t holds
     carriers [c C_local, (c + 1) C_local) of time block t."""
     n_c, n_t = mesh.size(CARRIER_AXIS), mesh.size(TIME_AXIS)
+    _count(mesh, "all-gather", x, (n_c * x.shape[0], n_t, *x.shape[2:]),
+           (n_c * n_t - 1) * x.numel() * x.element_size())
     wire = _to_wire(mesh, x)
     if n_c * n_t == 1:
         parts = [wire]

@@ -17,6 +17,7 @@ the compute device itself is the caller's, passed to the builders.
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Optional
 
 import torch
@@ -36,7 +37,17 @@ class Mesh:
     group}; group: the mesh's ranks.  backend: the world's (gloo or nccl).
     staged_bytes counts the bytes that the collectives of a gloo mesh
     copy between a CUDA device and the host (gloo's point-to-point and
-    gather take host tensors only)."""
+    gather take host tensors only).
+
+    The collectives' volume, as an XLA program's collective instructions
+    state it (parallel/halo.py counts; tools/comm_analysis.py reads):
+    collective_bytes {kind: bytes}, kinds "collective-permute" (halo
+    sides, carries), "all-reduce" (psum) and "all-gather" (the global
+    gather), each call counted by its operand's shape (an all-gather's by
+    its gathered result), whether or not a peer takes part, so that every
+    rank of the mesh counts the same; collective_calls {"kind dtype[dims]":
+    calls}, the same calls by shape; sent_bytes {kind: bytes this rank
+    put on the wire} (nothing to a missing peer or a group of one)."""
 
     axis_names = (CARRIER_AXIS, TIME_AXIS)
 
@@ -46,6 +57,9 @@ class Mesh:
         self.device_type = device_type
         self.backend = dist.get_backend()
         self.staged_bytes = 0
+        self.collective_bytes = Counter()
+        self.collective_calls = Counter()
+        self.sent_bytes = Counter()
         self.group = dist.new_group(list(range(carrier * time)))
         self.coords = None
         self.ranks = {}

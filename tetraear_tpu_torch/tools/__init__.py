@@ -16,6 +16,7 @@ verify_codec          the codec programs' I/O contracts (host)
 codec_quality         the codec's round-trip quality (host)
 sensitivity_sweep     downlink CRC-pass rate against SNR on --device
 bench_scaling         weak scaling of the sharded step over ranks
+comm_analysis         the sharded steps' collectives by kind, per mesh
 
 A tool that touches tensors takes --device, cuda by default; without a
 card it exits naming --device cpu.  Where the JAX tool's capture sources

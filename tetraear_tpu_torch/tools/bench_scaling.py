@@ -36,8 +36,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
-import tempfile
 import time
 from pathlib import Path
 
@@ -162,15 +160,6 @@ def run_world(device_type: str, per_device_samples: int, iters: int,
     return rows
 
 
-def _rank_main(device_type: str, opts: dict, out_dir: str,
-               outputs=None) -> None:
-    """A spawned rank: run_world, rank 0's rows to out_dir/rows.json."""
-    import torch.distributed as dist
-    rows = run_world(device_type, **opts, outputs=outputs)
-    if dist.get_rank() == 0:
-        (Path(out_dir) / "rows.json").write_text(json.dumps(rows))
-
-
 def main(argv=None, *, outputs=None) -> int:
     """The tool on argv.  outputs: a directory where rank 0 also saves
     each mesh's gathered global result as <n>.npz (run_world)."""
@@ -199,33 +188,18 @@ def main(argv=None, *, outputs=None) -> int:
     args = ap.parse_args(argv)
 
     import torch
-    import torch.distributed as dist
-    from tetraear_tpu_torch.parallel.distributed import (
-        LAUNCHER_ENV, initialize_distributed)
+    from tetraear_tpu_torch.entry import world_rows
     from tetraear_tpu_torch.ui.cli import _device
 
     device_type = "cpu" if args.virtual else _device(args.device).type
     opts = {"per_device_samples": args.per_device_samples,
             "iters": args.iters, "profile": args.profile,
-            "overhead": args.overhead}
-    if dist.is_initialized() or any(k in os.environ for k in LAUNCHER_ENV):
-        started_here = not dist.is_initialized()
-        initialize_distributed(device_type)
-        n_dev = dist.get_world_size()
-        if dist.get_rank() == 0:
-            print(f"# backend={device_type} devices={n_dev}", flush=True)
-        rows = run_world(device_type, **opts, outputs=outputs)
-        if started_here:
-            dist.destroy_process_group()
-    else:
-        from tetraear_tpu_torch.entry import launch
-        n_dev = args.virtual or (torch.cuda.device_count()
-                                 if device_type == "cuda" else 1)
+            "overhead": args.overhead, "outputs": outputs}
+    n = args.virtual or (torch.cuda.device_count()
+                         if device_type == "cuda" else 1)
+    rows, n_dev = world_rows(run_world, device_type, n, opts)
+    if rows:                                    # rank 0
         print(f"# backend={device_type} devices={n_dev}", flush=True)
-        with tempfile.TemporaryDirectory() as tmp:
-            launch(n_dev, device_type, _rank_main, device_type, opts, tmp,
-                   outputs)
-            rows = json.loads((Path(tmp) / "rows.json").read_text())
     for rec in rows:
         print(json.dumps(rec))
     return 0
