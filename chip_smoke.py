@@ -188,9 +188,23 @@ Phases (each prints its results; the first failure exits nonzero):
               card, the etsi step on the (2, 2) and (1, 4) meshes at
               --scale 1, every rank's counts by kind, by call, sent and
               gathered equal to the same ranks' on the CPU
+  10. bench   the wideband bench (tetraear_tpu_torch/bench.py), run after
+              the timing phases: its tier programs and rate
+              (`bench._run_tier`) at its defaults, 16 carriers (96 for
+              pfb), n = 8,319,936, 6 timed steps (single: 24 on 266,240
+              samples), for the tiers fused_pallas_bf16 (K1 bf16), pfb
+              (K1 bf16, 192 rows), complex (K5), realpair64, single,
+              fused_pallas (K1 f32), fused_pallas_db (K3) and
+              fused_pallas_of4_bf16 (K1-of bf16), each with the launch
+              counts set to 0 just before and read just after (its kernel,
+              and no other, launched once a step), its line held to the
+              one-line contract, its samples/s printed with the card's
+              name and power limit beside phase 6's time for the same
+              frontend; then `python -m tetraear_tpu_torch.bench` with the
+              defaults in a process of its own, its one stdout line parsed
 
 The line before the last is a JSON object with each kernel's route,
-source, launches in phases 4 to 5, 7, 8 and 9, error, times and bound;
+source, launches in phases 4 to 5, 7, 8, 9 and 10, error, times and bound;
 the last line is {"ok": true, "device": {...}}.
 """
 
@@ -2053,10 +2067,11 @@ def phase_single(device) -> dict:
     return launches
 
 
-def phase_timing_single(device, card: str) -> None:
+def phase_timing_single(device, card: str) -> float:
     """Each profile's block demodulator on one CLI chunk (CUDA events, input
     already on the card), its device busy share, the IIR's parts, the
-    host decoder and the Viterbi channel decode."""
+    host decoder and the Viterbi channel decode; -> the ref-compat
+    Frontend's ms a chunk."""
     import numpy as np
     import torch
     from tetraear_tpu_torch.core.decoder import TetraDecoder
@@ -2079,6 +2094,8 @@ def phase_timing_single(device, card: str) -> None:
         print(f"[timing] {card}: single carrier {profile} Frontend "
               f"(n={SC_CHUNK}) {ms:.3f} ms/chunk = "
               f"{SC_CHUNK / (ms / 1e3):,.0f} samples/s; device busy {busy}")
+        if profile == "ref-compat":
+            compat_ms = ms
         if profile == "ref-exact":
             res = fe(x, 0.0)
             symbols = res.hard_symbols[:int(res.count) - 1].cpu().numpy()
@@ -2107,6 +2124,7 @@ def phase_timing_single(device, card: str) -> None:
         ms = _time_ms(lambda: cc.decode_channel_soft(llrs), 5, warmup=1)
         print(f"[timing] {card}: SCH/F channel decode (Viterbi over 288 "
               f"trellis steps) of {batch} block(s): {ms:.3f} ms")
+    return compat_ms
 
 
 # --- 7. pod: the sharded receive (tetraear_tpu_torch/parallel/) -----------
@@ -3031,6 +3049,133 @@ def phase_comm(device, card: str) -> tuple:
     return launches, k5_err
 
 
+# --- 10. bench: the wideband bench (tetraear_tpu_torch/bench.py) ----------
+
+BENCH_CARRIERS, BENCH_SCALE, BENCH_ITERS = 16, 8, 6   # the bench's defaults
+# tier -> the launch counter of its kernel (None: plain PyTorch)
+BENCH_TIER_KERNELS = {
+    "fused_pallas_bf16": "s2d_conv_bf16", "pfb": "s2d_conv_bf16",
+    "complex": "fused_channelize", "realpair64": None, "single": None,
+    "fused_pallas": "s2d_conv", "fused_pallas_db": "s2d_conv_db",
+    "fused_pallas_of4_bf16": "s2d_conv_of_bf16"}
+
+
+def _bench_check(tag: str, cond: bool, msg: str) -> None:
+    if not cond:
+        fail("bench", f"{tag}: {msg}")
+
+
+def _bench_line(tag: str, line: str, carriers: int, variant: str) -> dict:
+    """The one-line contract of a card run: four keys, the per-chip
+    metric of `carriers` (none for the single tier) and `variant`, a
+    finite positive rate."""
+    import math
+    rec = json.loads(line)
+    scope = "" if variant.startswith("singlecarrier") else \
+        f"{carriers}carrier_"
+    _bench_check(tag, set(rec) == {"metric", "value", "unit",
+                                   "vs_baseline"}, f"keys {sorted(rec)}")
+    _bench_check(tag, rec["metric"] == "iq_samples_per_sec_per_chip_"
+                 f"{scope}{variant}", f"metric {rec['metric']}")
+    _bench_check(tag, rec["unit"] == "samples/s" and math.isfinite(
+        rec["value"]) and rec["value"] > 0, f"value {rec['value']}")
+    return rec
+
+
+def bench_phase6_ms(tier: str, t: dict, single_ms: float) -> str:
+    """Phase 6's time for the same frontend (its conv alone where phase 6
+    timed no frontend of the tier's conv)."""
+    fe = {"fused_pallas_bf16": t["fe16"]["frontend"],
+          "pfb": t["pfb_pallas_bf16"]["frontend"], "complex": t["staged"],
+          "realpair64": t["realpair64"]}
+    if tier in fe:
+        return f"phase 6: {fe[tier]:.3f} ms a block"
+    if tier == "single":
+        return (f"phase 6: {single_ms:.3f} ms a {SC_CHUNK}-sample chunk "
+                "(ref-compat Frontend)")
+    conv = {"fused_pallas": "k1_f32", "fused_pallas_db": "k3",
+            "fused_pallas_of4_bf16": "k1of_bf16"}[tier]
+    return f"phase 6: its conv alone {t[conv]['ms']:.3f} ms"
+
+
+def bench_tiers(device, card: str, t: dict, single_ms: float) -> dict:
+    """Each tier of BENCH_TIER_KERNELS through the bench's tier programs
+    and rate at the default block, its launch counts set to 0 just before
+    and read just after; -> the launches of all of them."""
+    import torch
+    from tetraear_tpu_torch import bench
+    from tetraear_tpu_torch.ops.kernels import launches, reset_launches
+    total = dict.fromkeys(launches(), 0)
+    n = bench.block_size(BENCH_SCALE)
+    for tier, kernel in BENCH_TIER_KERNELS.items():
+        reset_launches()
+        rate, variant, carriers = bench._run_tier(
+            tier, BENCH_CARRIERS, BENCH_SCALE, BENCH_ITERS, device)
+        counts = launches()
+        steps = (BENCH_ITERS * (4 if tier == "single" else 1)) + 3
+        want = {kernel: steps} if kernel else {}
+        _bench_check(tier, {k: v for k, v in counts.items() if v} == want,
+                     f"launches {counts}, expected {want}")
+        _bench_check(tier, rate.n == (2048 * 130 if tier == "single" else n)
+                     and carriers == (96 if tier == "pfb" else 1
+                                      if tier == "single" else
+                                      BENCH_CARRIERS),
+                     f"n {rate.n}, carriers {carriers}")
+        rec = _bench_line(tier, bench._result_line(
+            {"sps": rate.sps, "variant": variant, "carriers": carriers,
+             "backend": device.type}), carriers, variant)
+        print(f"[bench] {card}: {tier} ({variant}, {carriers} carriers, "
+              f"n={rate.n}): {rate.sps:,.0f} samples/s (host clock, "
+              f"{rate.step_ms:.3f} ms a step); CUDA events "
+              f"{rate.event_step_ms:.3f} ms a step = {rate.event_sps:,.0f} "
+              f"samples/s; {bench_phase6_ms(tier, t, single_ms)}; "
+              f"{rec['metric']}; launches {want or 'none'}")
+        for k, v in counts.items():
+            total[k] += v
+        torch.cuda.empty_cache()
+    return total
+
+
+def bench_module_run(card: str) -> None:
+    """`python -m tetraear_tpu_torch.bench` with the defaults, as a user
+    types it, in a process of its own: exactly one JSON line on stdout,
+    the faster of the two default goals."""
+    import os
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tetraear_tpu_torch.bench"],
+                          capture_output=True, text=True, timeout=300,
+                          env=env, cwd=Path(__file__).resolve().parent)
+    for line in proc.stderr.splitlines():
+        if line.startswith("[bench"):
+            print(f"[bench]   {line}")
+    _bench_check("module", proc.returncode == 0,
+                 f"exit {proc.returncode}: {proc.stderr[-2000:]}")
+    lines = [line for line in proc.stdout.splitlines() if line.strip()]
+    _bench_check("module", len(lines) == 1, f"stdout {proc.stdout!r}")
+    rec = json.loads(lines[0])
+    want = {"iq_samples_per_sec_per_chip_16carrier_"
+            "fused_pallas_bf16_demod_decode": (16, "fused_pallas_bf16_"
+                                               "demod_decode"),
+            "iq_samples_per_sec_per_chip_96carrier_pfb_demod_decode":
+            (96, "pfb_demod_decode")}
+    _bench_check("module", rec.get("metric") in want,
+                 f"metric {rec.get('metric')}")
+    _bench_line("module", lines[0], *want[rec["metric"]])
+    print(f"[bench] {card}: python -m tetraear_tpu_torch.bench: {lines[0]} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+
+def phase_bench(device, card: str, t: dict, single_ms: float) -> dict:
+    """10: the wideband bench (module docstring); returns the launches of
+    its tiers."""
+    t0 = time.perf_counter()
+    launches = bench_tiers(device, card, t, single_ms)
+    bench_module_run(card)
+    print(f"[bench] phase 10 in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     card = phase_device()
     import os
@@ -3076,18 +3221,22 @@ def main() -> int:
     t4 = time.perf_counter()
     t = phase_timing(device, card)
     t5 = time.perf_counter()
-    phase_timing_single(device, card)
+    single_ms = phase_timing_single(device, card)
     t6 = time.perf_counter()
     phase_timing_downlink(device, card)
     t7 = time.perf_counter()
     phase_timing_operator(device, card)
+    t8 = time.perf_counter()
+    for name, n in phase_bench(device, card, t, single_ms).items():
+        launches[name] += n
     print(f"[timing] phases: build {t1 - t0:.1f} s, kernel {t2 - t1:.1f} s, "
           f"decode {t3 - t2:.1f} s, single + downlink + operator "
           f"{t_pod - t3:.1f} s, pod {t_tools - t_pod:.1f} s, tools "
           f"{t_comm - t_tools:.1f} s, comm {t4 - t_comm:.1f} s, timing "
           f"{t5 - t4:.1f} s, single timing "
           f"{t6 - t5:.1f} s, downlink timing {t7 - t6:.1f} s, operator "
-          f"timing {time.perf_counter() - t7:.1f} s")
+          f"timing {t8 - t7:.1f} s, bench "
+          f"{time.perf_counter() - t8:.1f} s")
     times = {"s2d_conv": "k1_f32", "s2d_conv_bf16": "k1_bf16",
              "s2d_conv_of": "k1of_f32", "s2d_conv_of_bf16": "k1of_bf16",
              "s2d_conv_db": "k3", "s2d_conv_dt": "k4_f32",

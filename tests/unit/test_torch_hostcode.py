@@ -94,7 +94,7 @@ for name in ("models.downlink", "models.uplink", "ops.rm3014",
              "tools.bruteforce_keys", "tools.list_bladerf_devices",
              "tools.verify_codec", "tools.codec_quality",
              "tools.sensitivity_sweep", "tools.bench_scaling",
-             "tools.comm_analysis"):
+             "tools.comm_analysis", "bench"):
     assert "tetraear_tpu_torch." + name in names, name
 
 def run(*argv):

@@ -16,6 +16,7 @@ one the JAX module has and the twin lacks."""
 
 import ast
 import importlib
+import importlib.util
 from pathlib import Path
 
 import pytest
@@ -123,3 +124,78 @@ def test_port_has_every_public_name(rel):
     for name, reason in allowed.items():
         assert reason and name in names and not _has(twin, name), \
             f"allowlist entry {rel}: {name} is stale"
+
+
+# --- the bench: bench.py's tiers in tetraear_tpu_torch/bench.py -------------
+
+# bench.py's tiers and variants that ROADMAP's "Do not port" list leaves
+# out: TPU scheduling variants whose outputs equal their parent's
+UNPORTED_BENCH = ("_b<N>", "hb16", "mono")
+
+
+def _bench_branches() -> list:
+    """(tiers, labels) of each branch of bench.py's `_run_tier`, read from
+    its source: the tiers its test compares `tier` with (a startswith
+    prefix expanded by the suffixes its comment lists; a regex match
+    stands for a `_b<N>` tier) and the variant labels it returns."""
+    src = (REPO / "bench.py").read_text()
+    tree = ast.parse(src)
+    run_tier = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
+                    and n.name == "_run_tier")
+    lines = src.splitlines()
+    branches = []
+    for node in run_tier.body:
+        if not isinstance(node, ast.If):
+            continue
+        test = node.test
+        if isinstance(test, ast.Compare) and getattr(test.left, "id",
+                                                     "") == "tier":
+            comp = test.comparators[0]
+            tiers = [c.value for c in (comp.elts if isinstance(
+                comp, ast.Tuple) else [comp])]
+        elif isinstance(test, ast.Call) and test.func.attr == "startswith":
+            prefix = test.args[0].value
+            comment = lines[node.lineno - 1].partition("#")[2].strip()
+            tiers = [prefix] + [prefix + s for s in comment.split("/")]
+        else:
+            tiers = ["_b<N>"]                   # a regex match of the tier
+        labels = set()
+        for ret in (n for n in ast.walk(node) if isinstance(n, ast.Return)):
+            leaves = list(ast.walk(ret))
+            parts = {id(v) for leaf in leaves
+                     if isinstance(leaf, ast.JoinedStr) for v in leaf.values}
+            for leaf in leaves:
+                if (isinstance(leaf, ast.Constant) and id(leaf) not in parts
+                        and isinstance(leaf.value, str)):
+                    labels.add(leaf.value)
+                elif isinstance(leaf, ast.JoinedStr):
+                    tail = "".join(v.value for v in leaf.values
+                                   if isinstance(v, ast.Constant))
+                    labels |= {t + tail for t in tiers}
+        branches.append((tiers, labels))
+    return branches
+
+
+def test_bench_tiers_and_labels_are_ported():
+    """Every tier of bench.py's `_run_tier` and its variant label, but
+    for the "Do not port" list, is a tier of the port's bench with that
+    label; the default goals and the PFB variants are the same."""
+    from tetraear_tpu_torch import bench as tbench
+    spec = importlib.util.spec_from_file_location("jax_bench_for_names",
+                                                  REPO / "bench.py")
+    jbench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jbench)
+    branches = _bench_branches()
+    tiers = [t for ts, _ in branches for t in ts]
+    assert {"fused_pallas_bf16", "pfb", "complex", "realpair64", "single",
+            "fused_pallas_of4_bf16"} <= set(tiers)
+    for ts, labels in branches:
+        ported = [t for t in ts
+                  if not any(u in t for u in UNPORTED_BENCH)]
+        if not ported:
+            continue
+        assert {tbench.TIERS[t] for t in ported} == labels, (ts, labels)
+    assert tbench.DEFAULT_TIERS == (jbench.FULL_DECODE_16C[0], "pfb")
+    assert tbench.PFB_VARIANTS == tuple(
+        v for v in jbench._PFB_VARIANTS
+        if not any(u in v for u in UNPORTED_BENCH))
