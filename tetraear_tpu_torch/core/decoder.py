@@ -17,6 +17,7 @@ f32 on any device, so the frames do not depend on it.
 from __future__ import annotations
 
 import logging
+import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -28,6 +29,7 @@ from tetraear_tpu_torch.crypto.tea import TEADecryptor
 from tetraear_tpu_torch.protocol.bits import bits_to_binstr, bits_to_bytes
 from tetraear_tpu_torch.ops.sync import sync_correlation
 from tetraear_tpu_torch.protocol.parser import TetraProtocolParser
+from tetraear_tpu_torch.utils.metrics import record, tracing
 
 logger = logging.getLogger(__name__)
 
@@ -208,21 +210,30 @@ class TetraDecoder:
                                        (best_corr, best_corr))
 
     def _decode_with_dense(self, bits, mapped_symbols, dense) -> List[dict]:
-        """Shared threshold-cascade + frame-slicing body (decoder.py:843-888)."""
-        sync_positions, max_corr = self.find_sync(
-            bits, threshold=0.90, return_max_corr=True, _dense=dense)
-        if not sync_positions:
+        """Shared threshold-cascade + frame-slicing body (decoder.py:843-888):
+        sync passes at 0.90, 0.85 and 0.80 until one finds a sync, then
+        one at an adaptive threshold below the best correlation.  Under a
+        profiler session the row's sync passes are the inner span `sync`
+        (utils.metrics; counted in `sync.passes`) and its frame decodes
+        `frame` (`frame.tried`, and `frame.passed` for each frame)."""
+        traced = tracing()
+        clock = time.perf_counter_ns
+        t0 = clock() if traced else 0
+        sync_positions, max_corr, passes = [], 0.0, 0
+        for threshold in (0.90, 0.85, 0.80, None):
+            if threshold is None:
+                if max_corr < C.SYNC_ADAPTIVE_FLOOR:
+                    break
+                threshold = max(C.SYNC_ADAPTIVE_FLOOR,
+                                max_corr - C.SYNC_ADAPTIVE_TOLERANCE)
             sync_positions, max_corr = self.find_sync(
-                bits, threshold=0.85, return_max_corr=True, _dense=dense)
-            if not sync_positions:
-                sync_positions, max_corr = self.find_sync(
-                    bits, threshold=0.80, return_max_corr=True, _dense=dense)
-                if not sync_positions and max_corr >= C.SYNC_ADAPTIVE_FLOOR:
-                    adaptive = max(C.SYNC_ADAPTIVE_FLOOR,
-                                   max_corr - C.SYNC_ADAPTIVE_TOLERANCE)
-                    sync_positions, _ = self.find_sync(
-                        bits, threshold=adaptive, return_max_corr=True,
-                        _dense=dense)
+                bits, threshold=threshold, return_max_corr=True, _dense=dense)
+            passes += 1
+            if sync_positions:
+                break
+        if traced:
+            record("sync", clock() - t0, passes, {"sync.passes": passes})
+            frame_ns = tried = 0
 
         frames = []
         for pos in sync_positions:
@@ -235,8 +246,12 @@ class TetraDecoder:
             frame_symbols = mapped_symbols[start_sym:start_sym + C.SYMBOLS_PER_SLOT]
             frame_bits = bits[start_pos:start_pos + C.BITS_PER_SLOT]
             current_frame_num = start_pos // C.BITS_PER_SLOT
+            t1 = clock() if traced else 0
             frame = self.decode_frame(frame_bits, 0, frame_symbols,
                                       frame_number=current_frame_num)
+            if traced:
+                frame_ns += clock() - t1
+                tried += 1
             if frame:
                 # extra (non-reference) key: the absolute sync-hit bit index
                 # in this block's stream — the reference's 'position' field
@@ -246,6 +261,9 @@ class TetraDecoder:
                 frames.append(frame)
                 logger.info("Decoded frame %s (type: %s)",
                             frame["number"], frame["type"])
+        if traced:
+            record("frame", frame_ns, tried,
+                   {"frame.tried": tried, "frame.passed": len(frames)})
         return frames
 
     def decode_frame(self, bits, start_pos: int, symbols=None,

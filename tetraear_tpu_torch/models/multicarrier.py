@@ -44,6 +44,7 @@ from tetraear_tpu_torch.ops.kernels.s2d_conv import (
     check_fold, parse_fold, s2d_conv, s2d_conv_db, s2d_conv_of, tc_pack,
     tc_pack_k1)
 from tetraear_tpu_torch.ops.timing import best_phase_pick
+from tetraear_tpu_torch.utils.metrics import span
 
 
 class ConvVariant(NamedTuple):
@@ -267,10 +268,17 @@ class MulticarrierFrontend(CandidateStage):
         """x: (N,) complex IQ (numpy or tensor), moved to the module's
         device.  `start_index` (the block's first sample index) is taken
         for parity with the reference's call: the rotation is deferred to
-        z as a per-carrier constant, so the result does not depend on it."""
-        x = torch.as_tensor(x, device=self.device).to(torch.complex64)
-        yr, yi = self.channelize(x.contiguous())
-        return self.candidates(*self.demod(yr, yi))
+        z as a per-carrier constant, so the result does not depend on it.
+        Each stage is a chunk span (utils.metrics) in `tetra.frontend`."""
+        with span("tetra.frontend"):
+            with span("tetra.frontend.h2d"):
+                x = torch.as_tensor(x, device=self.device).to(torch.complex64)
+            with span("tetra.frontend.channelize"):
+                yr, yi = self.channelize(x.contiguous())
+            with span("tetra.frontend.demod"):
+                demod = self.demod(yr, yi)
+            with span("tetra.frontend.candidates"):
+                return self.candidates(*demod)
 
 
 class PfbMulticarrierFrontend(MulticarrierFrontend):
@@ -435,19 +443,27 @@ class MulticarrierDecoder:
                          for _ in range(num_carriers)]
 
     def decode(self, result: MulticarrierResult) -> list:
-        """-> list of per-carrier frame lists; frames gain a 'carrier' key."""
-        bits = result.bits.cpu().numpy()
-        corr = result.sync_corr.cpu().numpy()
-        counts = result.count.cpu().numpy()
-        out = []
-        for c, dec in enumerate(self.decoders):
-            nsym = max(int(counts[c]) - 1, 0)
-            nbits = 2 * nsym
-            cbits = bits[c, :nbits]
-            mapped = (cbits[0::2].astype(np.int64) << 1) | cbits[1::2]
-            ncorr = max(0, nbits - 21)
-            frames = dec.decode_frontend(cbits, mapped, corr[c, :ncorr])
-            for f in frames:
-                f["carrier"] = c
-            out.append(frames)
+        """-> list of per-carrier frame lists; frames gain a 'carrier' key.
+        A chunk span `tetra.decode` (utils.metrics) holds the device-to-
+        host pulls, which wait on the stream (`tetra.decode.pull`), and
+        the row loop (`tetra.decode.rows`)."""
+        with span("tetra.decode"):
+            with span("tetra.decode.pull"):
+                bits = result.bits.cpu().numpy()
+                corr = result.sync_corr.cpu().numpy()
+                counts = result.count.cpu().numpy()
+            with span("tetra.decode.rows"):
+                out = []
+                for c, dec in enumerate(self.decoders):
+                    nsym = max(int(counts[c]) - 1, 0)
+                    nbits = 2 * nsym
+                    cbits = bits[c, :nbits]
+                    mapped = ((cbits[0::2].astype(np.int64) << 1)
+                              | cbits[1::2])
+                    ncorr = max(0, nbits - 21)
+                    frames = dec.decode_frontend(cbits, mapped,
+                                                 corr[c, :ncorr])
+                    for f in frames:
+                        f["carrier"] = c
+                    out.append(frames)
         return out

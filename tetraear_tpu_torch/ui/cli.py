@@ -10,7 +10,8 @@ and `devices`.
         [--max-chunks N] [--duration S] [--device cuda|cpu] ...
     python -m tetraear_tpu_torch decode <iq>
         [--profile ref-compat|ref-exact|etsi] [--key-file keys.txt]
-        [-o out.jsonl] [--chunk-size S] [--device cuda|cpu] [-v]
+        [-o out.jsonl] [--chunk-size S] [--trace-dir DIR]
+        [--device cuda|cpu] [-v]
     python -m tetraear_tpu_torch decode <iq> --carriers N [--pfb] [--afc]
         [--conv auto|s2d|s2d_of|pallas|pallas_bf16] ...
     python -m tetraear_tpu_torch downlink [<iq>] [--simulate --slots N]
@@ -359,6 +360,7 @@ def _decode_single(args, source, dev: torch.device) -> int:
     from tetraear_tpu_torch.io.recorder import JsonlFrameRecorder
     from tetraear_tpu_torch.core.decoder import TetraDecoder
     from tetraear_tpu_torch.models.receiver import SignalProcessor
+    from tetraear_tpu_torch.utils.metrics import profile_trace
 
     processor = SignalProcessor(sample_rate=args.sample_rate * 1e6,
                                 config=_receiver_config(args), device=dev)
@@ -396,7 +398,8 @@ def _decode_single(args, source, dev: torch.device) -> int:
                 if text and not text.startswith("[BIN"):
                     print(f"[READABLE] Frame {frame_count}: {text[:100]}")
 
-    with JsonlFrameRecorder(out_path, include_bits=not args.no_bits) as rec:
+    with profile_trace(args.trace_dir), JsonlFrameRecorder(
+            out_path, include_bits=not args.no_bits) as rec:
         # queue chunk i+1 on the device before fetching and host-decoding
         # chunk i
         pending = None
@@ -454,6 +457,7 @@ def _decode_multicarrier(args, source, dev: torch.device) -> int:
         MulticarrierDecoder, build_frontend)
     from tetraear_tpu_torch.ops.channelizer import carrier_grid
     from tetraear_tpu_torch.ops.spectrum import estimate_grid_offset_hz
+    from tetraear_tpu_torch.utils.metrics import profile_trace
 
     conv = resolve_conv(args.conv, dev, args.pfb)
     if args.pfb and not CONV_VARIANTS[conv].pfb:
@@ -490,7 +494,8 @@ def _decode_multicarrier(args, source, dev: torch.device) -> int:
                 per_carrier[frame["carrier"]] += 1
                 rec.write(frame)
 
-    with JsonlFrameRecorder(out_path, include_bits=not args.no_bits) as rec:
+    with profile_trace(args.trace_dir), JsonlFrameRecorder(
+            out_path, include_bits=not args.no_bits) as rec:
         # queue chunk i+1 on the device before host-decoding chunk i; the
         # device-to-host copies in dec.decode are the only sync points
         pending = None
@@ -1264,6 +1269,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="(with --carriers) estimate the shared tuner offset "
                         "of the 25 kHz channel grid from the folded "
                         "spectrum and derotate before channelizing")
+    d.add_argument("--trace-dir", type=str, default=None,
+                   help="write a torch.profiler trace of the decode loop "
+                        "(Chrome trace format, trace.json) and its spans "
+                        "and counters (spans.json) into DIR")
     d.add_argument("-o", "--out-jsonl", type=str, default=None)
     d.add_argument("-v", "--verbose", action="store_true")
     d.set_defaults(func=cmd_decode)
