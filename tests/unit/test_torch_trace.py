@@ -23,11 +23,12 @@ CHUNK_SPANS = ("tetra.frontend", "tetra.frontend.h2d",
                "tetra.frontend.channelize", "tetra.frontend.demod",
                "tetra.frontend.candidates", "tetra.decode",
                "tetra.decode.pull", "tetra.decode.rows")
-INNER_SPANS = ("sync", "frame")
-COUNTERS = ("sync.passes", "frame.tried", "frame.passed")
+INNER_SPANS = ("sync", "frame", "frame.batch")
+COUNTERS = ("sync.passes", "frame.tried", "frame.passed", "frame.batched")
 READERS = ("host_decode.wait.ms", "host_decode.sync.ms",
            "host_decode.frame.ms", "host_decode.frame_yield",
-           "frontend.host.ms", "frontend.h2d.ms")
+           "frontend.host.ms", "frontend.h2d.ms",
+           "host_decode.frame_batch.ms")
 
 
 def _cell(name, busy):
@@ -90,11 +91,13 @@ def _same(a, b):
 
 
 def _calls(monkeypatch):
-    """Count every find_sync and decode_frame call and the frames the
-    latter returns."""
-    n = {"sync": 0, "tried": 0, "passed": 0}
+    """Count every find_sync call, every slot's frame decode
+    (`decode_slot`) and the frames it returns, and the batches
+    (`read_slots`) and their slots."""
+    n = {"sync": 0, "tried": 0, "passed": 0, "batches": 0, "batched": 0}
     find_sync = decoder_mod.TetraDecoder.find_sync
-    decode_frame = decoder_mod.TetraDecoder.decode_frame
+    decode_slot = decoder_mod.TetraDecoder.decode_slot
+    read_slots = decoder_mod.read_slots
 
     def counted_sync(self, *a, **k):
         n["sync"] += 1
@@ -102,12 +105,18 @@ def _calls(monkeypatch):
 
     def counted_frame(self, *a, **k):
         n["tried"] += 1
-        out = decode_frame(self, *a, **k)
+        out = decode_slot(self, *a, **k)
         n["passed"] += bool(out)
         return out
+
+    def counted_batch(head, symbols):
+        n["batches"] += 1
+        n["batched"] += len(head)
+        return read_slots(head, symbols)
     monkeypatch.setattr(decoder_mod.TetraDecoder, "find_sync", counted_sync)
-    monkeypatch.setattr(decoder_mod.TetraDecoder, "decode_frame",
+    monkeypatch.setattr(decoder_mod.TetraDecoder, "decode_slot",
                         counted_frame)
+    monkeypatch.setattr(decoder_mod, "read_slots", counted_batch)
     return n
 
 
@@ -191,24 +200,41 @@ def test_child_spans_lie_inside_their_parent(traced):
     assert {r["name"] for r in records} == set(CHUNK_SPANS)
     # the inner spans are summed under the row loop
     for r in records:
-        assert set(r["inner"]) <= ({"sync", "frame"}
+        assert set(r["inner"]) <= (set(INNER_SPANS)
                                    if r["name"] == "tetra.decode.rows"
                                    else set())
 
 
 def test_counters_count_the_calls(traced):
     """frame.passed equals the frames decode returned, frame.tried and
-    sync.passes the decode_frame and find_sync calls; the inner spans'
-    calls equal them."""
-    _, _, out, snap, _, n = traced
+    sync.passes the slots' frame decodes and the find_sync calls,
+    frame.batched the slots the batches took, which is every slot tried;
+    the inner spans' calls equal them, one batch a chunk."""
+    run, _, out, snap, _, n = traced
     frames = sum(len(rows) for chunk in out[1] for rows in chunk)
     assert frames > 0
     c = snap["counters"]
     assert c == {"sync.passes": n["sync"], "frame.tried": n["tried"],
-                 "frame.passed": n["passed"]}
+                 "frame.passed": n["passed"], "frame.batched": n["batched"]}
     assert c["frame.passed"] == frames
+    assert c["frame.batched"] == c["frame.tried"]
     assert snap["spans"]["sync"]["count"] == n["sync"]
     assert snap["spans"]["frame"]["count"] == n["tried"]
+    assert (snap["spans"]["frame.batch"]["count"] == n["batches"]
+            == len(run.ring.chunks))
+
+
+def test_frame_batch_once_a_chunk_inside_the_rows(traced):
+    """Each chunk's row loop holds one `frame.batch` call, and its
+    `frame` time (batch and tail) is at least its batch's."""
+    _, _, _, snap, _, _ = traced
+    rows = [r for r in snap["records"] if r["name"] == "tetra.decode.rows"]
+    assert rows
+    for r in rows:
+        assert r["inner"]["frame.batch"][1] == 1
+        assert r["inner"]["frame"][0] >= r["inner"]["frame.batch"][0]
+    spans = snap["spans"]
+    assert spans["frame"]["total_ms"] >= spans["frame.batch"]["total_ms"]
 
 
 def test_profiler_holds_chunk_spans_and_no_inner_span(traced):
@@ -254,6 +280,7 @@ def test_traced_harness_run_reads_the_six_metrics():
     assert set(READERS) <= set(m), m
     assert (m["host_decode.wait.ms"] + m["host_decode.sync.ms"]
             + m["host_decode.frame.ms"]) <= m["host_decode.ms"]
+    assert 0 < m["host_decode.frame_batch.ms"] <= m["host_decode.frame.ms"]
     assert m["frontend.h2d.ms"] <= m["frontend.host.ms"]
     assert 0 < m["host_decode.frame_yield"] <= 100
     assert result["correct"], result["check"]

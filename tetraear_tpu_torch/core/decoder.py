@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import logging
 import time
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,12 +26,88 @@ import torch
 from tetraear_tpu_torch import constants as C
 from tetraear_tpu_torch.crypto.keys import COMMON_KEYS, TetraKeyManager, parse_user_keys
 from tetraear_tpu_torch.crypto.tea import TEADecryptor
-from tetraear_tpu_torch.protocol.bits import bits_to_binstr, bits_to_bytes
+from tetraear_tpu_torch.protocol.bits import bits_to_bytes
 from tetraear_tpu_torch.ops.sync import sync_correlation
+from tetraear_tpu_torch.protocol.burst_batch import (HEADER_BITS, Slots,
+                                                     read_slots)
 from tetraear_tpu_torch.protocol.parser import TetraProtocolParser
 from tetraear_tpu_torch.utils.metrics import record, tracing
 
 logger = logging.getLogger(__name__)
+
+# the frame header's PDU type and encryption mode, as decode_slot names them
+_TYPE_NAMES = {0: "MAC-RESOURCE", 1: "MAC-FRAG", 2: "MAC-BROADCAST",
+               3: "MAC-END/RES"}
+_DESCRIPTIONS = {0: "Resource allocation", 1: "Fragment", 2: "Broadcast info",
+                 3: "End/Reserved"}
+_ALGORITHMS = {1: "TEA1", 2: "TEA2", 3: "TEA3"}
+_MODES = {1: "Class 2 (SCK)", 2: "Class 3 (DCK)", 3: "Reserved"}
+_NO_SLOTS = np.zeros(0, np.int64)
+_NO_HEAD = np.zeros(HEADER_BITS, np.uint8)
+
+
+class SlotWalk(NamedTuple):
+    """A row's sync walk (`TetraDecoder.walk`): its decoder, bits and
+    dibit symbols, and the sync hits whose 510-bit slot starts inside
+    it, in the walk's order."""
+    decoder: "TetraDecoder"
+    bits: np.ndarray
+    symbols: np.ndarray
+    positions: np.ndarray
+
+
+def decode_walks(walks: List[SlotWalk]) -> List[List[dict]]:
+    """The frame decode of every slot the walks found: one batch over all
+    of them through `burst_batch.read_slots`, then each row's frames in
+    the walk's order by its own decoder's `decode_slot` (its parser state
+    is its own).  -> a frame list per walk.
+
+    Under a profiler session (utils.metrics) the whole is the inner span
+    `frame` (one call a slot tried; counters `frame.tried`,
+    `frame.passed`), the batch the inner span `frame.batch` (one call;
+    `frame.batched` counts its slots)."""
+    traced = tracing()
+    clock = time.perf_counter_ns
+    t0 = clock() if traced else 0
+    starts = [(w.positions - C.SYNC_TO_FRAME_START_BITS).tolist()
+              for w in walks]
+    heads, symbols = [], []
+    for w, start in zip(walks, starts):
+        for s in start:
+            head = w.bits[s:s + HEADER_BITS]
+            # a slot cut short by the row's end gives no frame (decode_slot)
+            heads.append(head if len(head) == HEADER_BITS else _NO_HEAD)
+            symbols.append(w.symbols[s // 2:s // 2 + C.SYMBOLS_PER_SLOT])
+    tried = len(heads)
+    t1 = clock() if traced else 0
+    slots = read_slots(np.stack(heads), np.stack(symbols)) if tried else None
+    if traced:
+        record("frame.batch", clock() - t1, 1, {"frame.batched": tried})
+
+    out, i = [], 0
+    for w, start in zip(walks, starts):
+        frames = []
+        decode_slot = w.decoder.decode_slot
+        for pos, start_pos in zip(w.positions.tolist(), start):
+            frame_bits = w.bits[start_pos:start_pos + C.BITS_PER_SLOT]
+            frame = decode_slot(slots, i, frame_bits, 0,
+                                start_pos // C.BITS_PER_SLOT)
+            i += 1
+            if frame:
+                # extra (non-reference) key: the absolute sync-hit bit index
+                # in this block's stream — the reference's 'position' field
+                # is always 0 on the live path (quirk); shard stitching and
+                # overlap dedup need the real offset
+                frame["sync_position"] = pos
+                frames.append(frame)
+                logger.info("Decoded frame %s (type: %s)",
+                            frame["number"], frame["type"])
+        out.append(frames)
+    if traced:
+        record("frame", clock() - t0, tried,
+               {"frame.tried": tried,
+                "frame.passed": sum(len(frames) for frames in out)})
+    return out
 
 
 class TetraDecoder:
@@ -194,7 +270,13 @@ class TetraDecoder:
 
     def decode_frontend(self, bits, mapped_symbols, best_corr) -> List[dict]:
         """Decode from device-frontend outputs (bits + dense best-of-TS1/TS2
-        correlation), skipping the host-side correlation dispatch.
+        correlation), skipping the host-side correlation dispatch:
+        `decode_walks` over `frontend_walk`."""
+        return decode_walks([self.frontend_walk(bits, mapped_symbols,
+                                                best_corr)])[0]
+
+    def frontend_walk(self, bits, mapped_symbols, best_corr) -> "SlotWalk":
+        """The sync walk of `decode_frontend`.
 
         Passing (best, best) as the dense pair is exactly equivalent to the
         per-pattern arrays for every observable of find_sync: the accept
@@ -203,22 +285,24 @@ class TetraDecoder:
         """
         bits = np.asarray(bits)
         mapped_symbols = np.asarray(mapped_symbols)
-        best_corr = np.asarray(best_corr, dtype=np.float64)
         if bits.size < C.SYNC_LEN_BITS:
-            return []
-        return self._decode_with_dense(bits, mapped_symbols,
-                                       (best_corr, best_corr))
+            return SlotWalk(self, bits, mapped_symbols, _NO_SLOTS)
+        best_corr = np.asarray(best_corr, dtype=np.float64)
+        return self.walk(bits, mapped_symbols, (best_corr, best_corr))
 
     def _decode_with_dense(self, bits, mapped_symbols, dense) -> List[dict]:
-        """Shared threshold-cascade + frame-slicing body (decoder.py:843-888):
-        sync passes at 0.90, 0.85 and 0.80 until one finds a sync, then
-        one at an adaptive threshold below the best correlation.  Under a
-        profiler session the row's sync passes are the inner span `sync`
-        (utils.metrics; counted in `sync.passes`) and its frame decodes
-        `frame` (`frame.tried`, and `frame.passed` for each frame)."""
+        """`decode_walks` over this row's `walk` (decoder.py:843-888)."""
+        return decode_walks([self.walk(bits, mapped_symbols, dense)])[0]
+
+    def walk(self, bits, mapped_symbols, dense) -> "SlotWalk":
+        """The shared threshold cascade (decoder.py:843-870): sync passes
+        at 0.90, 0.85 and 0.80 until one finds a sync, then one at an
+        adaptive threshold below the best correlation; -> the row's sync
+        hits whose slot starts inside it (its symbols included).  Under a
+        profiler session the passes are the inner span `sync`
+        (utils.metrics; counted in `sync.passes`)."""
         traced = tracing()
-        clock = time.perf_counter_ns
-        t0 = clock() if traced else 0
+        t0 = time.perf_counter_ns() if traced else 0
         sync_positions, max_corr, passes = [], 0.0, 0
         for threshold in (0.90, 0.85, 0.80, None):
             if threshold is None:
@@ -232,106 +316,77 @@ class TetraDecoder:
             if sync_positions:
                 break
         if traced:
-            record("sync", clock() - t0, passes, {"sync.passes": passes})
-            frame_ns = tried = 0
-
-        frames = []
-        for pos in sync_positions:
-            start_pos = pos - C.SYNC_TO_FRAME_START_BITS
-            if start_pos < 0:
-                continue
-            start_sym = start_pos // 2
-            if start_sym + C.SYMBOLS_PER_SLOT > len(mapped_symbols):
-                continue
-            frame_symbols = mapped_symbols[start_sym:start_sym + C.SYMBOLS_PER_SLOT]
-            frame_bits = bits[start_pos:start_pos + C.BITS_PER_SLOT]
-            current_frame_num = start_pos // C.BITS_PER_SLOT
-            t1 = clock() if traced else 0
-            frame = self.decode_frame(frame_bits, 0, frame_symbols,
-                                      frame_number=current_frame_num)
-            if traced:
-                frame_ns += clock() - t1
-                tried += 1
-            if frame:
-                # extra (non-reference) key: the absolute sync-hit bit index
-                # in this block's stream — the reference's 'position' field
-                # is always 0 on the live path (quirk); shard stitching and
-                # overlap dedup need the real offset
-                frame["sync_position"] = int(pos)
-                frames.append(frame)
-                logger.info("Decoded frame %s (type: %s)",
-                            frame["number"], frame["type"])
-        if traced:
-            record("frame", frame_ns, tried,
-                   {"frame.tried": tried, "frame.passed": len(frames)})
-        return frames
+            record("sync", time.perf_counter_ns() - t0, passes,
+                   {"sync.passes": passes})
+        pos = np.asarray(sync_positions, dtype=np.int64)
+        start = pos - C.SYNC_TO_FRAME_START_BITS
+        inside = (start >= 0) & (start // 2 + C.SYMBOLS_PER_SLOT
+                                 <= len(mapped_symbols))
+        return SlotWalk(self, bits, mapped_symbols, pos[inside])
 
     def decode_frame(self, bits, start_pos: int, symbols=None,
                      frame_number: int = 0) -> Optional[dict]:
-        """Decode one 510-bit slot (the live definition, decoder.py:890-1119)."""
+        """Decode one 510-bit slot (the live definition, decoder.py:890-1119):
+        a batch of one through `read_slots` and `decode_slot`."""
         bits = np.asarray(bits)
         if len(bits) < self.FRAME_LENGTH:
             return None
-        frame_bits = bits
-        header_bits = frame_bits[0:32]
+        if symbols is None:
+            pairs = bits[:len(bits) - len(bits) % 2]
+            symbols = (pairs[0::2].astype(np.int64) << 1) | pairs[1::2]
+        symbols = np.asarray(symbols)
+        try:
+            if len(symbols) < C.SYMBOLS_PER_SLOT:
+                logger.warning("Insufficient symbols for burst: %d < %d",
+                               len(symbols), C.SYMBOLS_PER_SLOT)
+                burst = None
+            else:
+                burst = symbols[None, :C.SYMBOLS_PER_SLOT]
+            slots = read_slots(bits[None, :HEADER_BITS], burst)
+        except Exception as e:
+            logger.debug("Protocol parsing error: %s", e)
+            slots = read_slots(bits[None, :HEADER_BITS], None)
+        return self.decode_slot(slots, 0, bits, start_pos, frame_number)
 
-        pdu_type_int = (int(frame_bits[0]) << 1) | int(frame_bits[1])
-        encryption_mode_int = (int(frame_bits[2]) << 1) | int(frame_bits[3])
-        frame_type = pdu_type_int
-
-        additional_info: dict = {}
-        if frame_type == 0:
-            frame_type_name = "MAC-RESOURCE"
-            additional_info["description"] = "Resource allocation"
-        elif frame_type == 1:
-            frame_type_name = "MAC-FRAG"
-            additional_info["description"] = "Fragment"
-        elif frame_type == 2:
-            frame_type_name = "MAC-BROADCAST"
-            additional_info["description"] = "Broadcast info"
-        elif frame_type == 3:
-            frame_type_name = "MAC-END/RES"
-            additional_info["description"] = "End/Reserved"
-        else:
-            frame_type_name = f"Type {frame_type}"
-            additional_info["description"] = f"Raw type {frame_type}"
-
-        encrypted = encryption_mode_int > 0
-        encryption_algorithm = None
-        if encryption_mode_int == 1:
-            encryption_algorithm = "TEA1"
-            additional_info["encryption_mode"] = "Class 2 (SCK)"
-        elif encryption_mode_int == 2:
-            encryption_algorithm = "TEA2"
-            additional_info["encryption_mode"] = "Class 3 (DCK)"
-        elif encryption_mode_int == 3:
-            encryption_algorithm = "TEA3"
-            additional_info["encryption_mode"] = "Reserved"
-
+    def decode_slot(self, slots: Slots, i: int, bits, start_pos: int,
+                    frame_number: int) -> Optional[dict]:
+        """The stateful tail of the frame decode for slot i of `slots`
+        (burst_batch.read_slots), on `bits` (its frame bits, >= 510 for a
+        frame): the frame dict, the parser's statistics, fragment buffer
+        and network state, call metadata, the entropy check of the clear
+        flag, SDS, decryption."""
+        if len(bits) < self.FRAME_LENGTH:
+            return None
+        frame_type = slots.pdu_type[i]
+        encryption_mode_int = slots.encryption_mode[i]
+        additional_info: dict = {"description": _DESCRIPTIONS.get(
+            frame_type, f"Raw type {frame_type}")}
+        encryption_algorithm = _ALGORITHMS.get(encryption_mode_int)
+        if encryption_algorithm:
+            additional_info["encryption_mode"] = _MODES[encryption_mode_int]
         frame_data = {
             "type": frame_type,
-            "type_name": frame_type_name,
+            "type_name": _TYPE_NAMES.get(frame_type, f"Type {frame_type}"),
             "number": frame_number,
             "timeslot": frame_number % 4,
-            "bits": frame_bits,
-            "header": bits_to_binstr(header_bits),
+            "bits": bits,
+            "header": slots.header[i],
             "position": start_pos,
-            "encrypted": encrypted,
+            "encrypted": encryption_mode_int > 0,
             "encryption_algorithm": encryption_algorithm,
             "key_id": "0",
             "additional_info": additional_info,
         }
 
+        parser = self.protocol_parser
         try:
-            if symbols is None:
-                pairs = frame_bits[:len(frame_bits) - len(frame_bits) % 2]
-                symbols = (pairs[0::2].astype(np.int64) << 1) | pairs[1::2]
-            burst = self.protocol_parser.parse_burst(
-                np.asarray(symbols), slot_number=frame_number % 4)
-            if burst:
-                frame_data["burst_crc"] = burst.crc_ok
+            if slots.crc_ok is not None:
+                crc_ok = slots.crc_ok[i]
+                parser.count_burst(crc_ok)
+                frame_data["burst_crc"] = crc_ok
+                header = slots.mac[i]
                 try:
-                    mac_pdu = self.protocol_parser.parse_mac_pdu(burst.data_bits)
+                    mac_pdu = parser.mac_pdu_of(header)
                     if mac_pdu:
                         frame_data["mac_pdu"] = {
                             "type": mac_pdu.pdu_type.name,
@@ -341,18 +396,13 @@ class TetraDecoder:
                             "data": mac_pdu.data,
                         }
                         if mac_pdu.encrypted:
-                            encrypted = True
                             frame_data["encrypted"] = True
                             enc_mode = getattr(mac_pdu, "encryption_mode", 0)
-                            if enc_mode == 1:
-                                frame_data["encryption_algorithm"] = "TEA1"
-                                additional_info["encryption_mode"] = "Class 2 (SCK)"
-                            elif enc_mode == 2:
-                                frame_data["encryption_algorithm"] = "TEA2"
-                                additional_info["encryption_mode"] = "Class 3 (DCK)"
-                            elif enc_mode == 3:
-                                frame_data["encryption_algorithm"] = "TEA3"
-                                additional_info["encryption_mode"] = "Reserved"
+                            if enc_mode in _ALGORITHMS:
+                                frame_data["encryption_algorithm"] = (
+                                    _ALGORITHMS[enc_mode])
+                                additional_info["encryption_mode"] = (
+                                    _MODES[enc_mode])
                             elif not frame_data.get("encryption_algorithm"):
                                 frame_data["encryption_algorithm"] = "TEA1"
                         else:
@@ -370,7 +420,7 @@ class TetraDecoder:
                                 frame_data["encrypted"] = False
                                 frame_data["encryption_algorithm"] = None
 
-                        call_meta = self.protocol_parser.parse_call_metadata(mac_pdu)
+                        call_meta = parser.parse_call_metadata(mac_pdu)
                         if call_meta:
                             frame_data["call_metadata"] = {
                                 "call_type": call_meta.call_type,
@@ -398,8 +448,7 @@ class TetraDecoder:
                                              if mac_pdu.reassembled_data
                                              else mac_pdu.data)
                         if not mac_pdu.encrypted and len(payload_to_decode) > 0:
-                            sds_text = self.protocol_parser.parse_sds_data(
-                                payload_to_decode)
+                            sds_text = parser.parse_sds_data(payload_to_decode)
                             # NOTE startswith("[BIN]") deliberately does NOT
                             # exclude "[BIN-ENC]..." (reference quirk,
                             # decoder.py:1085)
@@ -412,11 +461,11 @@ class TetraDecoder:
                                     additional_info["description"] += " (Reassembled)"
                     else:
                         # strict discard: unparseable MAC + failed CRC
-                        if not burst.crc_ok:
+                        if not crc_ok:
                             return None
                 except Exception as e:
                     logger.debug("MAC PDU parsing error: %s", e)
-                    if not burst.crc_ok:
+                    if not crc_ok:
                         return None
         except Exception as e:
             logger.debug("Protocol parsing error: %s", e)

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from tetraear_tpu_torch.config import ReceiverConfig
-from tetraear_tpu_torch.core.decoder import TetraDecoder
+from tetraear_tpu_torch.core.decoder import TetraDecoder, decode_walks
 from tetraear_tpu_torch.models.candidates import (  # noqa: F401
     CandidateStage, MulticarrierResult, candidate_stage, extract_candidates)
 from tetraear_tpu_torch.models.realpair import (
@@ -444,16 +444,18 @@ class MulticarrierDecoder:
 
     def decode(self, result: MulticarrierResult) -> list:
         """-> list of per-carrier frame lists; frames gain a 'carrier' key.
-        A chunk span `tetra.decode` (utils.metrics) holds the device-to-
-        host pulls, which wait on the stream (`tetra.decode.pull`), and
-        the row loop (`tetra.decode.rows`)."""
+        Every row's sync walk first, then one frame decode over all their
+        slots (`decode_walks`: one batch, then each row's frames by its
+        own decoder, in row order).  A chunk span `tetra.decode`
+        (utils.metrics) holds the device-to-host pulls, which wait on the
+        stream (`tetra.decode.pull`), and the rows (`tetra.decode.rows`)."""
         with span("tetra.decode"):
             with span("tetra.decode.pull"):
                 bits = result.bits.cpu().numpy()
                 corr = result.sync_corr.cpu().numpy()
                 counts = result.count.cpu().numpy()
             with span("tetra.decode.rows"):
-                out = []
+                walks = []
                 for c, dec in enumerate(self.decoders):
                     nsym = max(int(counts[c]) - 1, 0)
                     nbits = 2 * nsym
@@ -461,9 +463,10 @@ class MulticarrierDecoder:
                     mapped = ((cbits[0::2].astype(np.int64) << 1)
                               | cbits[1::2])
                     ncorr = max(0, nbits - 21)
-                    frames = dec.decode_frontend(cbits, mapped,
-                                                 corr[c, :ncorr])
+                    walks.append(dec.frontend_walk(cbits, mapped,
+                                                   corr[c, :ncorr]))
+                out = decode_walks(walks)
+                for c, frames in enumerate(out):
                     for f in frames:
                         f["carrier"] = c
-                    out.append(frames)
         return out

@@ -7,10 +7,12 @@ a 16 x M binary matrix.  `_crc_matrix` builds (A, c0) with numpy;
 <= M (<= 200 here), exact in f32 — and in TF32, whose 10-bit mantissa
 holds 0 and 1 exactly while the sum accumulates in f32.
 
-The host oracles `crc16_bits`, `crc16_bits_arr` and `soft_crc_check_host`
-(numpy) serve the host protocol code (protocol/parser.py, utils/synth.py).
-`soft_crc_check_host` takes the native engine (utils/native_dsp) when it
-is built, as the reference's does; its verdicts are the numpy oracle's.
+The host oracles `crc16_bits`, `crc16_bits_arr`, `soft_crc_check_host`
+and its batch over rows `soft_crc_check_rows` (numpy) serve the host
+protocol code (protocol/parser.py, protocol/burst_batch.py,
+utils/synth.py).  Both checks take the native engine (utils/native_dsp)
+when it is built, as the reference's does; its verdicts are the numpy
+oracle's.
 """
 
 from __future__ import annotations
@@ -80,20 +82,38 @@ def soft_crc_check_host(data_bits) -> bool:
 
 def soft_crc_check_numpy(data_bits) -> bool:
     """soft_crc_check_host on the GF(2) CRC matrix, in numpy."""
+    return bool(soft_crc_check_numpy_rows(np.asarray(data_bits)[None])[0])
+
+
+def soft_crc_check_rows(data_bits) -> np.ndarray:
+    """soft_crc_check_host over each row of (F, D) bits, as (F,) bool: the
+    native engine's batch where it is built, else
+    `soft_crc_check_numpy_rows`."""
+    from tetraear_tpu_torch.utils import native_dsp
+    verdict = native_dsp.soft_crc_check_batch(data_bits,
+                                              C.CRC_SOFT_ERROR_BUDGET)
+    if verdict is not None:
+        return verdict
+    return soft_crc_check_numpy_rows(data_bits)
+
+
+def soft_crc_check_numpy_rows(data_bits) -> np.ndarray:
+    """soft_crc_check_host over each row of (F, D) bits, in numpy: the
+    forward and the reversed payload through the CRC matrix as one f32
+    product each (every sum an integer <= D, exact)."""
     bits = np.asarray(data_bits).astype(np.uint8) & 1
-    if bits.size < 16:
-        return False
-    ones = int(bits.sum())
-    if ones == 0 or ones == bits.size:
-        return False
-    payload, received = bits[:-16], bits[-16:]
-    a, c0 = _crc_matrix(payload.size)
-    a = a.astype(np.int64)
-    for p in (payload, payload[::-1]):
-        crc = (a @ p.astype(np.int64)) % 2 ^ c0
-        if int(np.sum(crc != received)) <= C.CRC_SOFT_ERROR_BUDGET:
-            return True
-    return False
+    f, d = bits.shape
+    if d < 16:
+        return np.zeros(f, bool)
+    ones = bits.sum(axis=1)
+    ok = np.zeros(f, bool)
+    payload, received = bits[:, :-16], bits[:, -16:]
+    a, c0 = _crc_matrix(d - 16)
+    a_t = a.T.astype(np.float32)
+    for p in (payload, payload[:, ::-1]):
+        crc = (p.astype(np.float32) @ a_t).astype(np.int64) % 2 ^ c0
+        ok |= (crc != received).sum(axis=1) <= C.CRC_SOFT_ERROR_BUDGET
+    return ok & (ones != 0) & (ones != d)
 
 
 def crc_tables(m: int, device) -> tuple[torch.Tensor, torch.Tensor]:

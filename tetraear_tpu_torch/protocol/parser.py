@@ -3,8 +3,10 @@ call metadata, SDS facade, statistics.
 
 Behavioral parity with tetraear/core/protocol.py:142-800 and :1261-1300.
 The burst-level math (bit expansion, CRC) has batched device twins in
-ops/crc.py and ops/sync.py; this host class is the stateful, byte-oriented
-layer the device results feed into (SURVEY.md §7 host/device split).
+ops/crc.py and ops/sync.py, and the stateless reading of bursts and MAC
+headers runs over a batch of slots in protocol/burst_batch.py; this host
+class is the stateful, byte-oriented layer their results feed into
+(SURVEY.md §7 host/device split).
 """
 
 from __future__ import annotations
@@ -17,8 +19,9 @@ import numpy as np
 from tetraear_tpu_torch import constants as C
 from tetraear_tpu_torch.ops.crc import soft_crc_check_host
 from tetraear_tpu_torch.protocol import sds as sds_mod
-from tetraear_tpu_torch.protocol.bits import (as_bit_array, bits_to_bytes,
-                                        bits_to_uint, symbols_to_bit_pairs)
+from tetraear_tpu_torch.protocol.bits import as_bit_array, bits_to_uint
+from tetraear_tpu_torch.protocol.burst_batch import (MacHeader, mac_headers,
+                                                     read_bursts)
 from tetraear_tpu_torch.protocol.lip import parse_lip
 from tetraear_tpu_torch.protocol.types import (BurstType, CallMetadata, MacPDU,
                                          PDUType, TetraBurst)
@@ -67,7 +70,8 @@ class TetraProtocolParser:
     # ------------------------------------------------------------------ PHY
     def parse_burst(self, symbols, slot_number: int = 0,
                     crc_ok: Optional[bool] = None) -> Optional[TetraBurst]:
-        """Slice a 255-symbol burst (protocol.py:192-244).
+        """Slice a 255-symbol burst (protocol.py:192-244): a batch of one
+        through `burst_batch.read_bursts`, then `count_burst`.
 
         ``crc_ok`` lets the caller supply a device-computed CRC verdict
         (ops/crc.soft_crc_check_batch) to skip the host recompute; None
@@ -78,53 +82,26 @@ class TetraProtocolParser:
             logger.warning("Insufficient symbols for burst: %d < %d",
                            len(symbols), self.SYMBOLS_PER_SLOT)
             return None
-        burst_symbols = symbols[:self.SYMBOLS_PER_SLOT]
-        bits = symbols_to_bit_pairs(burst_symbols)
-
-        burst_type = self._detect_burst_type(bits)
-        training_seq = self._extract_training_sequence(bits, burst_type)
-        data_bits = self._extract_data_bits(bits, burst_type)
-        if crc_ok is None:
-            crc_ok = self._check_crc(data_bits)
-        crc_ok = bool(crc_ok)
-
-        self.stats["total_bursts"] += 1
-        self.stats["crc_pass" if crc_ok else "crc_fail"] += 1
-
+        bursts = read_bursts(symbols[None, :self.SYMBOLS_PER_SLOT],
+                             None if crc_ok is None else [bool(crc_ok)])
+        crc_ok = bool(bursts.crc_ok[0])
+        self.count_burst(crc_ok)
         return TetraBurst(
-            burst_type=burst_type,
+            burst_type=(BurstType.Synchronization if bursts.sync[0]
+                        else BurstType.NormalDownlink),
             slot_number=slot_number,
             frame_number=self.current_frame_number,
-            training_sequence=training_seq,
-            data_bits=data_bits,
+            training_sequence=bursts.training_sequence(0),
+            data_bits=bursts.data_bits(0),
             crc_ok=crc_ok,
             colour_code=self.colour_code or 0,
         )
 
-    def _detect_burst_type(self, bits: np.ndarray) -> BurstType:
-        """Sync burst iff a sync word sits at mid-burst (protocol.py:246-254)."""
-        sync_pos = len(bits) // 2
-        if self._check_sync_pattern(bits[sync_pos:sync_pos + 22]):
-            return BurstType.Synchronization
-        return BurstType.NormalDownlink
-
-    def _check_sync_pattern(self, bits: np.ndarray) -> bool:
-        if len(bits) < 22:
-            return False
-        match_cont = np.sum(bits[:22] == C.SYNC_CONTINUOUS_DOWNLINK) / 22
-        match_disc = np.sum(bits[:22] == C.SYNC_DISCONTINUOUS_DOWNLINK) / 22
-        return max(match_cont, match_disc) > 0.8
-
-    def _extract_training_sequence(self, bits, burst_type) -> np.ndarray:
-        if burst_type == BurstType.Synchronization:
-            return bits[C.BURST_TRAINING_SYNC[0]:C.BURST_TRAINING_SYNC[1]]
-        return bits[C.BURST_TRAINING[0]:C.BURST_TRAINING[1]]
-
-    def _extract_data_bits(self, bits, burst_type) -> np.ndarray:
-        if burst_type in (BurstType.NormalDownlink, BurstType.NormalUplink):
-            return np.concatenate([bits[C.BURST_BLOCK1[0]:C.BURST_BLOCK1[1]],
-                                   bits[C.BURST_BLOCK2[0]:C.BURST_BLOCK2[1]]])
-        return bits
+    def count_burst(self, crc_ok: bool) -> None:
+        """The burst's statistics: the stateful part of `parse_burst`,
+        which a batched caller (TetraDecoder.decode_slot) takes alone."""
+        self.stats["total_bursts"] += 1
+        self.stats["crc_pass" if crc_ok else "crc_fail"] += 1
 
     def _check_crc(self, bits) -> bool:
         """Soft CRC-16 gate (protocol.py:292-329); exact host twin of the
@@ -137,106 +114,56 @@ class TetraProtocolParser:
 
     # ------------------------------------------------------------------ MAC
     def parse_mac_pdu(self, bits) -> Optional[MacPDU]:
-        """Downlink MAC PDU parse with fragmentation (protocol.py:349-596)."""
+        """Downlink MAC PDU parse with fragmentation (protocol.py:349-596):
+        a batch of one through `burst_batch.mac_headers`, then
+        `mac_pdu_of`."""
         bits = as_bit_array(bits)
-        if len(bits) < 8:
+        return self.mac_pdu_of(mac_headers(bits[None])[0])
+
+    def mac_pdu_of(self, header: MacHeader) -> Optional[MacPDU]:
+        """The stateful part of `parse_mac_pdu`, from the fields
+        `burst_batch.mac_headers` read: statistics, the fragment buffer
+        and metadata, the SYSINFO network state, reassembly."""
+        pdu_type = header.pdu_type
+        if pdu_type is None:
             return None
-
-        pdu_type_int = (int(bits[0]) << 1) | int(bits[1])
-        if pdu_type_int == 0:
-            pdu_type = PDUType.MAC_RESOURCE
-        elif pdu_type_int == 1:
-            pdu_type = PDUType.MAC_FRAG
-        elif pdu_type_int == 2:
-            pdu_type = PDUType.MAC_BROADCAST
-        else:
-            pdu_type = PDUType.MAC_END
-
-        encryption_mode_val = (int(bits[2]) << 1) | int(bits[3])
+        encryption_mode_val = header.encryption_mode
         encrypted = encryption_mode_val > 0
-
-        address: Optional[int] = None
-        length = 0
-        data_bytes = b""
-        fill_bit_ind = 0
+        address = header.address
+        data_bytes = header.data
 
         if pdu_type == PDUType.MAC_RESOURCE:
-            fill_bit_ind = int(bits[4])
-            pos = 5
-            if len(bits) >= pos + 24:
-                address = bits_to_uint(bits[pos:pos + 24])
-                pos += 24
-            else:
-                return None
-            if len(bits) >= pos + 6:
-                length = bits_to_uint(bits[pos:pos + 6])
-                pos += 6
-            else:
-                return None
-            data_len_bits = length * 8
-            if data_len_bits > len(bits) - pos + 16:
-                return None
-            if data_len_bits > 0 and len(bits) >= pos + data_len_bits:
-                data_bits = bits[pos:pos + data_len_bits]
-            else:
-                data_bits = bits[pos:]
-            data_bytes = bits_to_bytes(data_bits)
             # start of a (possibly fragmented) message
             self.fragment_buffer = bytearray(data_bytes)
             self.fragment_metadata = {"address": address, "encrypted": encrypted,
                                       "mode": encryption_mode_val}
 
         elif pdu_type == PDUType.MAC_FRAG:
-            fill_bit_ind = int(bits[4])
-            data_bytes = bits_to_bytes(bits[5:])
             self.fragment_buffer.extend(data_bytes)
             if self.fragment_metadata:
                 encrypted = self.fragment_metadata.get("encrypted", False)
                 address = self.fragment_metadata.get("address")
 
         elif pdu_type == PDUType.MAC_BROADCAST:
-            broadcast_type = (int(bits[2]) << 1) | int(bits[3])
-            pos = 4
-            if broadcast_type == 0:  # SYSINFO: MCC(10) MNC(14) CC(6)
-                if len(bits) >= pos + 30:
-                    # QUIRK (protocol.py:483-494): parser state is assigned
-                    # BEFORE the ITU-T E.212 sanity gate, so invalid values
-                    # poison self.mcc/mnc even when the PDU is rejected —
-                    # later frames' call metadata inherits them.  The
-                    # sibling _parse_broadcast validates first.
-                    self.mcc = bits_to_uint(bits[pos:pos + 10])
-                    self.mnc = bits_to_uint(bits[pos + 10:pos + 24])
-                    self.colour_code = bits_to_uint(bits[pos + 24:pos + 30])
-                    if self.mcc < 200 or self.mcc > 799:
-                        logger.debug("Invalid MCC %d in SYNC - not real TETRA",
-                                     self.mcc)
-                        return None
-                    if self.mnc > 999:
-                        logger.debug("Invalid MNC %d in SYNC - not real TETRA",
-                                     self.mnc)
-                        return None
-                    logger.info("Valid TETRA SYNC: MCC=%d MNC=%d",
-                                self.mcc, self.mnc)
-                else:
+            if encryption_mode_val == 0:  # SYSINFO: MCC(10) MNC(14) CC(6)
+                # QUIRK (protocol.py:483-494): parser state is assigned
+                # BEFORE the ITU-T E.212 sanity gate, so invalid values
+                # poison self.mcc/mnc even when the PDU is rejected —
+                # later frames' call metadata inherits them.  The
+                # sibling _parse_broadcast validates first.
+                self.mcc, self.mnc, self.colour_code = header.network
+                if self.mcc < 200 or self.mcc > 799:
+                    logger.debug("Invalid MCC %d in SYNC - not real TETRA",
+                                 self.mcc)
                     return None
-            data_bytes = bits_to_bytes(bits[pos:])
+                if self.mnc > 999:
+                    logger.debug("Invalid MNC %d in SYNC - not real TETRA",
+                                 self.mnc)
+                    return None
+                logger.info("Valid TETRA SYNC: MCC=%d MNC=%d",
+                            self.mcc, self.mnc)
 
         else:  # MAC_END
-            fill_bit_ind = int(bits[4])
-            pos = 5
-            if len(bits) >= pos + 6:
-                length = bits_to_uint(bits[pos:pos + 6])
-                pos += 6
-            else:
-                return None
-            data_len_bits = length * 8
-            if data_len_bits > len(bits) - pos + 16:
-                return None
-            if data_len_bits > 0 and len(bits) >= pos + data_len_bits:
-                data_bits = bits[pos:pos + data_len_bits]
-            else:
-                data_bits = bits[pos:]
-            data_bytes = bits_to_bytes(data_bits)
             self.fragment_buffer.extend(data_bytes)
             if self.fragment_metadata:
                 encrypted = self.fragment_metadata.get("encrypted", False)
@@ -248,9 +175,9 @@ class TetraProtocolParser:
             pdu_type=pdu_type,
             encrypted=encrypted,
             address=address,
-            length=length,
+            length=header.length,
             data=data_bytes,
-            fill_bits=fill_bit_ind,
+            fill_bits=header.fill_bits,
             encryption_mode=encryption_mode_val,
         )
 
