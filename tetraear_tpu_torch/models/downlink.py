@@ -20,13 +20,15 @@ product and the channel decodes run there; the burst walk, the PDU
 dataclasses and the call ledger are host code, copies of the reference's.
 `MulticarrierDownlinkReceiver` channelizes a wideband capture with
 `ops.channelizer.channelize`, which is K5 on a CUDA tensor.
+`simulate_multiframe` makes the `downlink --simulate` capture from seeds.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,19 +37,21 @@ from tetraear_tpu_torch import constants as C
 from tetraear_tpu_torch.config import ReceiverConfig
 from tetraear_tpu_torch.core.calls import CallTracker
 from tetraear_tpu_torch.models.receiver import as_iq
-from tetraear_tpu_torch.models.receiver_etsi import EtsiReceiver
+from tetraear_tpu_torch.models.receiver_etsi import (EtsiDemodResult,
+                                                     EtsiReceiver)
 from tetraear_tpu_torch.ops import channel_coding as cc
 from tetraear_tpu_torch.ops import rm3014
 from tetraear_tpu_torch.ops.scramble import (extended_colour_code,
                                              scrambling_sequence)
-from tetraear_tpu_torch.protocol import bursts, layer3
+from tetraear_tpu_torch.protocol import bursts, cmce, layer3
 from tetraear_tpu_torch.protocol import mac as mac_l2
-from tetraear_tpu_torch.protocol import mle
+from tetraear_tpu_torch.protocol import mle, sds_tl
 from tetraear_tpu_torch.protocol.bits import bits_to_bytes, bytes_to_bits
 from tetraear_tpu_torch.protocol.parser import TetraProtocolParser
 from tetraear_tpu_torch.protocol.pdus import (AccessAssignPDU, SyncPDU,
                                               SysinfoPDU)
 from tetraear_tpu_torch.utils import synth
+from tetraear_tpu_torch.utils.metrics import record, span, tracing
 
 SLOT_BITS = C.BITS_PER_SLOT                 # 510
 SLOTS_PER_FRAME = C.SLOTS_PER_FRAME         # 4
@@ -336,6 +340,82 @@ class DownlinkTransmitter:
                                    mapping="pi4", seed=seed)
 
 
+class SimulatedDownlink(NamedTuple):
+    iq: np.ndarray          # complex64 at 2.4 MS/s
+    cell: DownlinkConfig
+    payloads: Dict[int, np.ndarray]   # stream slot -> 268 SCH/F type-1 bits
+    traffic: np.ndarray     # (M, k1) type-1 blocks of the TN3 traffic
+    voiced: bool            # the blocks are ACELP-coded speech
+
+
+# the group call the simulated cell signals on TN4
+SIM_GROUP, SIM_TALKER, SIM_CALL = 0x2328, 0x457, 41
+
+
+def simulate_multiframe(slots: int = 16, message: str = "DOWNLINK SDS",
+                        snr_db: float | None = 25.0,
+                        traffic_channel: str = "TCH/S",
+                        traffic_depth: int = 1, seed: int = 0,
+                        start_mn: int = 1,
+                        voice: bool = False) -> SimulatedDownlink:
+    """The `downlink --simulate` capture: SB on TN1 every frame, SCH/F
+    MAC blocks with SDS texts "<message> #<slot>" on TN2, a traffic
+    channel on TN3 (SCH/F in frame 18), and on TN4 a group call's CMCE
+    signalling (D-SETUP allocating TN3, D-TX-GRANTED, D-SDS-DATA with the
+    SDS-TL text "<message> via SDS-TL", D-TX-CEASED, D-RELEASE), then
+    idle SCH/F; `slots` slots from TN1 FN1 of multiframe `start_mn`.
+
+    `seed` draws the blocks' fill bits and the random traffic bits, and
+    seed + 1 the lead and the noise (`DownlinkTransmitter.modulate`;
+    snr_db over the whole 2.4 MS/s band, as utils.synth.synthesize_iq).
+    `voice` codes TCH/S as ACELP speech with the codec built from
+    native/codec where it builds; random bits otherwise."""
+    cell = DownlinkConfig(start_mn=start_mn)
+    tx = DownlinkTransmitter(cell)
+    rng = np.random.default_rng(seed)
+    # a 268-bit SCH/F block fits 29 payload bytes after the 35-bit header
+    payloads = {k: synth.make_mac_block_bits(
+        f"{message} #{k}".encode()[:29], seed=(seed << 16) + k)
+        for k in range(slots) if k % 4 == 1}
+    talker = cmce.Address(1, SIM_TALKER)
+    alloc = mac_l2.ChannelAllocation(allocation_type=1, timeslots=0b0010,
+                                     carrier_number=cell.main_carrier)
+    seq = [cmce.DSetup(call_identifier=SIM_CALL, call_priority=5,
+                       transmission_grant=1, calling_party=talker),
+           cmce.DTxGranted(call_identifier=SIM_CALL, transmission_grant=1,
+                           transmitting_party=talker),
+           cmce.DSdsData(calling_party=talker, short_data_type=3,
+                         data_bits=sds_tl.build_text_transfer(
+                             f"{message} via SDS-TL")),
+           cmce.DTxCeased(call_identifier=SIM_CALL),
+           cmce.DRelease(call_identifier=SIM_CALL, disconnect_cause=2)]
+    slot = 3
+    for pdu in seq:
+        if slot >= slots:
+            break
+        kw = ({"channel_allocation": alloc}
+              if isinstance(pdu, cmce.DSetup) else {})
+        slot = tx.schedule_signalling(payloads, pdu, SIM_GROUP, slot, slots,
+                                      **kw)
+    k1 = cc.TCH_GEOMETRY[traffic_channel][0]
+    voc = None
+    if voice and traffic_channel == "TCH/S":
+        from tetraear_tpu_torch.audio.voice import VoiceEncoder
+        venc = VoiceEncoder()
+        if venc.working:
+            n_blocks = max(1, slots // 4)
+            pcm = synth.make_test_speech(n_blocks * 0.06 + 0.06)
+            voc = venc.encode_pcm_bits(pcm)[:n_blocks]
+    voiced = voc is not None and len(voc) > 0
+    if not voiced:
+        voc = rng.integers(0, 2, (max(1, slots // 4), k1)).astype(np.uint8)
+    bits = tx.stream_bits(slots, payloads=payloads,
+                          tch_streams={3: (traffic_channel, voc,
+                                           traffic_depth)})
+    return SimulatedDownlink(tx.modulate(bits, snr_db=snr_db, seed=seed + 1),
+                             cell, payloads, voc, voiced)
+
+
 # ---------------------------------------------------------------------------
 # Receiver
 # ---------------------------------------------------------------------------
@@ -354,7 +434,17 @@ def _pattern_corr(hard_bits: np.ndarray, pattern: np.ndarray) -> np.ndarray:
 
 
 class DownlinkReceiver:
-    """Blind cell acquisition + slot-grid decode over a soft-bit stream."""
+    """Blind cell acquisition + slot-grid decode over a soft-bit stream.
+
+    Under a profiler session (utils.metrics) `demodulate` is the chunk
+    span `tetra.downlink.demod` and `decode` the chunk span
+    `tetra.downlink`; inside the latter, the inner spans `dl.acquire`
+    (STS matched filter and BSCH tries up to the anchor), `dl.aach`
+    (the RM(30,14) product and the AACH parses), `dl.channel` (the
+    batched channel decodes, their pulls included) and `dl.assemble` (the
+    host loop in slot order: PDU and layer-3 parses, the call ledger),
+    with the counters `dl.slots` (slots on the grid), `dl.crc_checked`
+    and `dl.crc_passed` (frames whose CRC was checked, and passed)."""
 
     STS_THRESHOLD = 0.87          # >= 34/38 midamble bits (33/38 = .868)
 
@@ -423,18 +513,33 @@ class DownlinkReceiver:
     # --- IQ entry ---
     def receive(self, iq, freq_offset: float | str = 0.0
                 ) -> List[DownlinkFrame]:
-        if freq_offset == "auto":
-            freq_offset = self.estimate_offset(
-                iq, self.rx.config.sample_rate_hz)
-        res = self.rx(iq, freq_offset)
-        count = int(res.count)
-        if count < 2:
-            return []
-        soft = res.soft_bits[:count - 1].reshape(-1).cpu().numpy()
-        return self.receive_soft(soft)
+        return self.decode(self.demodulate(iq, freq_offset))
+
+    def demodulate(self, iq, freq_offset: float | str = 0.0
+                   ) -> EtsiDemodResult:
+        """The device half of `receive`: the etsi demod of the capture,
+        queued on the receiver's device with no host sync (an "auto"
+        offset is estimated first, which reads the spectra back)."""
+        with span("tetra.downlink.demod"):
+            if freq_offset == "auto":
+                freq_offset = self.estimate_offset(
+                    iq, self.rx.config.sample_rate_hz)
+            return self.rx(iq, freq_offset)
+
+    def decode(self, result: EtsiDemodResult) -> List[DownlinkFrame]:
+        """The host half of `receive`: the symbol count and the soft bits
+        pulled, then `receive_soft`."""
+        with span("tetra.downlink"):
+            count = int(result.count)
+            if count < 2:
+                return []
+            soft = result.soft_bits[:count - 1].reshape(-1).cpu().numpy()
+            return self.receive_soft(soft)
 
     # --- core ---
     def receive_soft(self, llrs: np.ndarray) -> List[DownlinkFrame]:
+        traced = tracing()
+        t0 = time.perf_counter_ns() if traced else 0
         hard = (llrs > 0).astype(np.uint8)
         corr = _pattern_corr(hard, bursts.STS)
         if corr.size == 0:
@@ -451,6 +556,8 @@ class DownlinkReceiver:
             if pdu is not None:
                 anchor, sync_pdu = start, pdu
                 break
+        if traced:
+            record("dl.acquire", time.perf_counter_ns() - t0, 1)
         if anchor is None:
             return []
 
@@ -500,6 +607,8 @@ class DownlinkReceiver:
         n = slots.shape[0]
         if n == 0:
             return []
+        traced = tracing()
+        clock = time.perf_counter_ns
         hard = (slots > 0).astype(np.uint8)
 
         # classification (vectorized host compare — trivially cheap)
@@ -509,6 +618,7 @@ class DownlinkReceiver:
         is_sb = sts_score >= np.maximum(n_score, p_score) + 8
 
         # AACH for every slot: one (n, 30) x (30, 16384) matmul
+        t0 = clock() if traced else 0
         bb = np.where(is_sb[:, None], slots[:, 214:244],
                       np.concatenate([slots[:, 230:244],
                                       slots[:, 266:282]], axis=1))
@@ -517,6 +627,8 @@ class DownlinkReceiver:
         aach_bits = aach_bits.cpu().numpy()
         margins = margins.cpu().numpy()
         aachs = [AccessAssignPDU.parse(aach_bits[i]) for i in range(n)]
+        if traced:
+            record("dl.aach", clock() - t0, 1)
 
         ndb_coded = np.concatenate([slots[:, 14:230], slots[:, 282:498]],
                                    axis=1)
@@ -531,6 +643,7 @@ class DownlinkReceiver:
         stolen_idx = np.flatnonzero(is_stolen)
 
         # batched channel decodes (one per group)
+        t0 = clock() if traced else 0
         sb_res = {}
         if sb_idx.size:
             bsch = cc.decode_channel_soft(
@@ -560,8 +673,11 @@ class DownlinkReceiver:
                 ecc30=cell_ecc)
             stolen_res = {"bits": dec.bits.cpu().numpy(),
                           "ok": dec.crc_ok.cpu().numpy()}
+        if traced:
+            record("dl.channel", clock() - t0, 1)
 
         # host assembly in slot order
+        t0 = clock() if traced else 0
         sb_pos = {int(s): j for j, s in enumerate(sb_idx)}
         schf_pos = {int(s): j for j, s in enumerate(schf_idx)}
         tch_pos = {int(s): j for j, s in enumerate(tch_idx)}
@@ -663,6 +779,11 @@ class DownlinkReceiver:
                         self._try_decrypt(frame)
                 frames.append(frame)
             tn, fn, mn = advance_tdma(tn, fn, mn, 1)
+        if traced:
+            checked = [f.crc_ok for f in frames if f.crc_ok is not None]
+            record("dl.assemble", clock() - t0, 1,
+                   {"dl.slots": n, "dl.crc_checked": len(checked),
+                    "dl.crc_passed": sum(checked)})
         return frames
 
     # --- layer-3 consumption (etsi profile) ---

@@ -18,9 +18,12 @@ The encoders are host numpy code, as in the reference.
 from __future__ import annotations
 
 import functools
+import time
 
 import numpy as np
 import torch
+
+from tetraear_tpu_torch.utils.metrics import record, tracing
 
 # tap masks over [u(k), u(k-1), u(k-2), u(k-3), u(k-4)]
 _GENS = ((1, 1, 0, 0, 1),
@@ -110,7 +113,15 @@ def viterbi_decode(llrs: torch.Tensor, num_input_bits: int,
     (..., num_input_bits - 4) uint8 message bits when `terminated` (the
     path ends in state 0, tail stripped), else all num_input_bits (the
     path ends in the best state, the first on ties).  A tie between a
-    state's two predecessors takes predecessor 0."""
+    state's two predecessors takes predecessor 0.
+
+    Under a profiler session (utils.metrics) each call is one inner span
+    `viterbi`, the host time of its launches (counters `viterbi.steps`,
+    the trellis steps run, and `viterbi.blocks`, the code blocks).  It
+    lies inside whatever inner span its caller keeps: in the downlink,
+    `dl.acquire` and `dl.channel` overlap it."""
+    traced = tracing()
+    t0 = time.perf_counter_ns() if traced else 0
     pred0, pred1, u_new, sign = _trellis()
     dev = llrs.device
     n = num_input_bits
@@ -149,6 +160,9 @@ def viterbi_decode(llrs: torch.Tensor, num_input_bits: int,
     bits = bits.t()
     if terminated:
         bits = bits[:, :n - 4]
+    if traced:
+        record("viterbi", time.perf_counter_ns() - t0, 1,
+               {"viterbi.steps": n, "viterbi.blocks": bsz})
     return bits.reshape(llrs.shape[:-1] + (bits.shape[-1],))
 
 

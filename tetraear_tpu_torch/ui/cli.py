@@ -551,71 +551,19 @@ def _read_iq(args):
 
 
 def _simulate_downlink(args):
-    """The reference's `downlink --simulate` capture: SCH/F MAC blocks on
+    """The reference's `downlink --simulate` capture
+    (models/downlink.simulate_multiframe at seed 0): SCH/F MAC blocks on
     TN2, a group call's CMCE signalling with an SDS-TL text on TN4, TN3 a
     traffic channel (real ACELP-coded speech for TCH/S where the codec
     builds, random bits otherwise), 25 dB SNR by default."""
-    import numpy as np
-    from tetraear_tpu_torch.models.downlink import (DownlinkConfig,
-                                                    DownlinkTransmitter)
-    from tetraear_tpu_torch.ops.channel_coding import TCH_GEOMETRY
-    from tetraear_tpu_torch.protocol import cmce, sds_tl
-    from tetraear_tpu_torch.protocol.mac import ChannelAllocation
-    from tetraear_tpu_torch.utils.synth import make_mac_block_bits
-    cell = DownlinkConfig()
-    tx = DownlinkTransmitter(cell)
-    rng = np.random.default_rng(0)
-    # a 268-bit SCH/F block fits 29 payload bytes after the 35-bit header
-    payloads = {k: make_mac_block_bits(
-        f"{args.message} #{k}".encode()[:29], seed=k)
-        for k in range(args.slots) if k % 4 == 1}
-    # CMCE signalling on TN4: a group call's lifecycle and an SDS-TL text;
-    # the D-SETUP's channel allocation names TN3, where the traffic below
-    # rides, so that the receiver attributes the voice to call 41
-    group, talker = 0x2328, 0x457
-    alloc = ChannelAllocation(allocation_type=1, timeslots=0b0010,
-                              carrier_number=cell.main_carrier)
-    seq = [cmce.DSetup(call_identifier=41, call_priority=5,
-                       transmission_grant=1,
-                       calling_party=cmce.Address(1, talker)),
-           cmce.DTxGranted(call_identifier=41, transmission_grant=1,
-                           transmitting_party=cmce.Address(1, talker)),
-           cmce.DSdsData(calling_party=cmce.Address(1, talker),
-                         short_data_type=3,
-                         data_bits=sds_tl.build_text_transfer(
-                             f"{args.message} via SDS-TL")),
-           cmce.DTxCeased(call_identifier=41),
-           cmce.DRelease(call_identifier=41, disconnect_cause=2)]
-    slot = 3
-    for pdu in seq:
-        if slot >= args.slots:
-            break
-        kw = ({"channel_allocation": alloc}
-              if isinstance(pdu, cmce.DSetup) else {})
-        slot = tx.schedule_signalling(payloads, pdu, group, slot,
-                                      args.slots, **kw)
-    k1 = TCH_GEOMETRY[args.traffic_channel][0]
-    voc = None
-    if args.traffic_channel == "TCH/S":
-        # coded speech over the air: synthesized PCM through the codec
-        # built from native/codec, so that the received voice blocks
-        # decode to ACELP audio
-        from tetraear_tpu_torch.audio.voice import VoiceEncoder
-        from tetraear_tpu_torch.utils.synth import make_test_speech
-        venc = VoiceEncoder()
-        if venc.working:
-            n_blocks = max(1, args.slots // 4)
-            pcm = make_test_speech(n_blocks * 0.06 + 0.06)
-            voc = venc.encode_pcm_bits(pcm)[:n_blocks]
-            print(f"[SIM] TCH/S carries {len(voc)} blocks of real "
-                  "ACELP-coded speech (native/codec)")
-    if voc is None or len(voc) == 0:
-        voc = rng.integers(0, 2, (max(1, args.slots // 4), k1)
-                           ).astype(np.uint8)
-    bits = tx.stream_bits(args.slots, payloads=payloads,
-                          tch_streams={3: (args.traffic_channel, voc,
-                                           args.traffic_depth)})
-    return tx.modulate(bits, snr_db=args.snr_db, seed=1)
+    from tetraear_tpu_torch.models.downlink import simulate_multiframe
+    sim = simulate_multiframe(args.slots, args.message, args.snr_db,
+                              args.traffic_channel, args.traffic_depth,
+                              voice=True)
+    if sim.voiced:
+        print(f"[SIM] TCH/S carries {len(sim.traffic)} blocks of real "
+              "ACELP-coded speech (native/codec)")
+    return sim.iq
 
 
 def _downlink_record(f, describe_pdu) -> dict:
