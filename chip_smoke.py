@@ -37,6 +37,18 @@ Phases (each prints its results; the first failure exits nonzero):
               `scan --wideband` gives it (C = 1, the 3 planted channels of
               phase 4c and all 95 channels of a sweep) on the sweep's
               offsets at its n = 1,044,480
+  3b. viterbi the Viterbi kernel (csrc/viterbi.cu) against its plain
+              version at the downlink cell's four calls a multiframe (N =
+              80, B = 1: acquisition's BSCH try; N = 80, 144 and 288 at
+              B = 18, 18 and 36: the BSCH, SCH/HD and SCH/F groups), on
+              soft and on tie-heavy inputs, every bit equal to the plain
+              version's on the CPU, each call one launch; then both times
+              at each shape (the kernel's device time in torch.profiler
+              over 100 calls, and back to back by CUDA events; the plain
+              loop on the card by CUDA events over 5 calls, and its
+              device operations a call), the kernel's host time a call,
+              its latency bound (`viterbi_bound_ms`) and its share of it,
+              and the chunk's sums
   4. decode   the main paths through the entry points a user calls, each
               on a planted signal, every launch count set to 0 just before
               and read just after: `tetraear_tpu_torch.ui.cli.main(
@@ -94,8 +106,9 @@ Phases (each prints its results; the first failure exits nonzero):
               `listen` decoded); and a `listen` whose processor fails on
               the card (a CUDA out-of-memory), which must raise
   5. single   the single-carrier receiver and the etsi link on the card,
-              plain PyTorch (no kernel of the table; the launch counts
-              are set to 0 before each path and read after it): the
+              plain PyTorch but for the etsi link's Viterbi, the one
+              kernel of the table they launch (the launch counts are set
+              to 0 before each path and read after it): the
               golden captures clean, noisy_offset, encrypted and the
               chunked long_mixed through the ref-exact `SignalProcessor`
               and `TetraDecoder`, every golden key equal; the CLI's
@@ -287,7 +300,20 @@ KERNELS = {                  # wrapper -> (source, TPU kernel it replaces)
                          "tetraear_tpu/ops/pallas/s2d_conv.py:108"),
     "fused_channelize": ("tetraear_tpu_torch/csrc/fused_channelize.cu",
                          "tetraear_tpu/ops/pallas/fused_channelize.py:59"),
+    "viterbi": ("tetraear_tpu_torch/csrc/viterbi.cu",
+                "none: tetraear_tpu/ops/viterbi.py:141 is a lax.scan"),
 }
+# (N, B) of the downlink cell's Viterbi calls a multiframe: acquisition's
+# BSCH try, then the BSCH, SCH/HD and SCH/F groups of its 72 slots
+VITERBI_SHAPES = ((80, 1), (80, 18), (144, 18), (288, 36))
+# the Viterbi kernel's latency bound, in clocks of one dependent step of
+# its two serial chains and of its one DRAM round trip, from the latencies
+# the cuda guide gives (shared memory ~20 clocks, which a shuffle is taken
+# at, as it crosses the same crossbar; HBM ~400) and the CUDA C++
+# Programming Guide's ~4 clocks a dependent arithmetic instruction
+VITERBI_ACS_CLOCKS = 20 + 3 * 4     # shuffle, add, compare, select
+VITERBI_TRACE_CLOCKS = 3 * 4        # shift by the state, mask, merge
+VITERBI_LOAD_CLOCKS = 400           # the soft values into shared memory
 
 
 def fail(phase: str, msg: str) -> None:
@@ -475,6 +501,107 @@ def phase_kernel(device) -> dict:
     worst["fused_channelize"] = max(kernel_k5(device),
                                     kernel_k5_scan(device))
     return worst
+
+
+def _device_ops(fn) -> int:
+    """Device operations (kernels and copies) of one call of fn, from a
+    torch.profiler trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def _max_sm_mhz() -> float:
+    """The card's maximum SM clock, MHz, as nvidia-smi reports it."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True,
+        text=True).stdout.split()[0])
+
+
+def viterbi_bound_ms(n: int, mhz: float) -> float:
+    """The Viterbi kernel's latency bound at N = n trellis steps, whatever
+    the batch (the grid spreads code blocks over the SMs): the soft
+    values' DRAM round trip, then n add-compare-select steps and n
+    traceback steps, each waiting on the last, at `mhz`."""
+    clocks = (VITERBI_LOAD_CLOCKS
+              + n * (VITERBI_ACS_CLOCKS + VITERBI_TRACE_CLOCKS))
+    return clocks / (mhz * 1e6) * 1e3
+
+
+def phase_viterbi(device, card: str) -> dict:
+    """3b: the Viterbi kernel against its plain version at VITERBI_SHAPES
+    (module docstring); -> its chunk's times, its bound and the bits that
+    differed."""
+    import numpy as np
+    import torch
+    from tetraear_tpu_torch.ops import viterbi as vit
+    rng = np.random.default_rng(18)
+    wrong = 0
+    mhz = _max_sm_mhz()
+    chunk = {"ms": 0.0, "plain_ms": 0.0, "host_ms": 0.0, "bound_ms": 0.0}
+    for n, b in VITERBI_SHAPES:
+        soft = rng.standard_normal((b, 4 * n)).astype(np.float32)
+        ties = (np.sign(soft) * (rng.random(soft.shape) > 0.3)).astype(
+            np.float32)
+        for x in (soft, ties):
+            got = _launched("viterbi", lambda: vit.viterbi_decode(
+                torch.as_tensor(x, device=device), n))
+            want = vit.viterbi_decode_plain(torch.as_tensor(x), n)
+            wrong += int((got.cpu() != want).sum())
+        xd = torch.as_tensor(soft, device=device)
+
+        def kernel():
+            return vit.viterbi_decode(xd, n)
+
+        def plain():
+            return vit.viterbi_decode_plain(xd, n)
+        p1 = _time_ms(plain, 5, 1)
+        k1 = _device_busy_ms(kernel, 100)[0]
+        k2 = _device_busy_ms(kernel, 100)[0]
+        p2 = _time_ms(plain, 5, 1)
+        events_ms = _time_ms(kernel, 200, 10)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            kernel()
+        host_ms = (time.perf_counter() - t0) / 200 * 1e3
+        torch.cuda.synchronize()
+        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        bound_ms = viterbi_bound_ms(n, mhz)
+        print(f"[viterbi] {card}: N = {n}, B = {b}: kernel {ms:.4f} ms "
+              f"({k1:.4f}, {k2:.4f}; device time in torch.profiler, 100 "
+              f"calls; {ms / n * 1e6:.1f} ns a trellis step); latency "
+              f"bound {bound_ms:.4f} ms = {bound_ms / ms:.1%} of it; back to "
+              f"back {events_ms:.4f} ms a call (CUDA events, 200 calls), "
+              f"host {host_ms:.4f} ms a call, 1 launch "
+              f"({_device_ops(kernel)} device op); plain on the card "
+              f"{plain_ms:.3f} ms ({p1:.3f}, {p2:.3f}; CUDA events, 5 "
+              f"calls), {_device_ops(plain)} device ops a call")
+        chunk["ms"] += ms
+        chunk["plain_ms"] += plain_ms
+        chunk["host_ms"] += host_ms
+        chunk["bound_ms"] += bound_ms
+    if wrong:
+        fail("viterbi", f"{wrong} bits differ from the plain version's")
+    by = (f"latency: {VITERBI_LOAD_CLOCKS} + N x ({VITERBI_ACS_CLOCKS} + "
+          f"{VITERBI_TRACE_CLOCKS}) clocks at {mhz:.0f} MHz")
+    print(f"[viterbi] {card}: the cell's four calls a multiframe: kernel "
+          f"{chunk['ms']:.4f} ms (host {chunk['host_ms']:.4f} ms), latency "
+          f"bound {chunk['bound_ms']:.4f} ms ({by}) = "
+          f"{chunk['bound_ms'] / chunk['ms']:.1%} of it, plain "
+          f"{chunk['plain_ms']:.3f} ms; every bit equal, soft and "
+          f"tie-heavy")
+    return {"max_abs_err": 0.0, "ms": chunk["ms"],
+            "plain_ms": chunk["plain_ms"], "bound_ms": chunk["bound_ms"],
+            "bound_by": by, "library_ms": None}
 
 
 def kernel_k4(device) -> dict:
@@ -1195,10 +1322,7 @@ def phase_timing_staged(device, card: str, t: dict) -> None:
     # sample at one instruction per lane, 4 schedulers x 32 lanes a clock
     # on every SM, at the card's maximum SM clock
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True,
-        text=True).stdout.split()[0])
+    mhz = _max_sm_mhz()
     osc_ms = (K5_OSC_INSTRUCTIONS * carriers * BENCH_N
               / (sms * 4 * 32 * mhz * 1e6) * 1e3)
     t["k5"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -1428,14 +1552,15 @@ def _uplink_cli_run() -> None:
 def phase_downlink(device) -> dict:
     """The ETSI downlink, the 16-carrier survey (K5) and both uplink
     monitors through the CLI, each with the launch counts set to 0 just
-    before and read just after; the survey must launch K5."""
+    before and read just after; the survey must launch K5, the downlink
+    and the uplink the Viterbi."""
     launches = dict.fromkeys(KERNELS, 0)
     for tag, wrapper, run in (
-            ("cli downlink --simulate (one multiframe)", None,
+            ("cli downlink --simulate (one multiframe)", "viterbi",
              _downlink_cli_run),
             ("cli downlink --survey 16 + MulticarrierDownlinkReceiver",
              "fused_channelize", lambda: _survey_run(device)),
-            ("cli uplink --simulate [--continuous]", None,
+            ("cli uplink --simulate [--continuous]", "viterbi",
              _uplink_cli_run)):
         for name, n in _path(tag, wrapper, run).items():
             launches[name] += n
@@ -2054,7 +2179,7 @@ def _etsi_link_run(device) -> None:
 def phase_single(device) -> dict:
     """The single-carrier paths through their entry points, each with the
     launch counts set to 0 just before and read just after (they are
-    plain PyTorch: no kernel of the table runs)."""
+    plain PyTorch but for the etsi link's Viterbi kernel)."""
     launches = dict.fromkeys(KERNELS, 0)
     runs = [("golden captures, ref-exact SignalProcessor + TetraDecoder",
              lambda: _golden_run(device))]
@@ -3194,6 +3319,8 @@ def main() -> int:
     phase_build()
     t1 = time.perf_counter()
     errs = phase_kernel(device)
+    viterbi = phase_viterbi(device, card)
+    errs["viterbi"] = viterbi["max_abs_err"]
     t2 = time.perf_counter()
     launches = phase_decode(device)
     t3 = time.perf_counter()
@@ -3220,6 +3347,7 @@ def main() -> int:
     errs["fused_channelize"] = max(errs["fused_channelize"], k5_comm_err)
     t4 = time.perf_counter()
     t = phase_timing(device, card)
+    t["viterbi"] = viterbi
     t5 = time.perf_counter()
     single_ms = phase_timing_single(device, card)
     t6 = time.perf_counter()
@@ -3229,7 +3357,8 @@ def main() -> int:
     t8 = time.perf_counter()
     for name, n in phase_bench(device, card, t, single_ms).items():
         launches[name] += n
-    print(f"[timing] phases: build {t1 - t0:.1f} s, kernel {t2 - t1:.1f} s, "
+    print(f"[timing] phases: build {t1 - t0:.1f} s, kernel + viterbi "
+          f"{t2 - t1:.1f} s, "
           f"decode {t3 - t2:.1f} s, single + downlink + operator "
           f"{t_pod - t3:.1f} s, pod {t_tools - t_pod:.1f} s, tools "
           f"{t_comm - t_tools:.1f} s, comm {t4 - t_comm:.1f} s, timing "
@@ -3240,7 +3369,8 @@ def main() -> int:
     times = {"s2d_conv": "k1_f32", "s2d_conv_bf16": "k1_bf16",
              "s2d_conv_of": "k1of_f32", "s2d_conv_of_bf16": "k1of_bf16",
              "s2d_conv_db": "k3", "s2d_conv_dt": "k4_f32",
-             "s2d_conv_dt_bf16": "k4_bf16", "fused_channelize": "k5"}
+             "s2d_conv_dt_bf16": "k4_bf16", "fused_channelize": "k5",
+             "viterbi": "viterbi"}
     print(card)
     print(json.dumps({"kernels": [{
         "name": name,

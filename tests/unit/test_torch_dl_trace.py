@@ -3,7 +3,7 @@
 `tetraear_tpu_torch.utils.metrics`), on the CPU: recorded exactly while a
 torch.profiler session runs, changing no frame; the inner spans lie under
 `tetra.downlink` and the counters count what was done; the benchmark's
-seven downlink readers find them in a traced window of the cell
+eight downlink readers find them in a traced window of the cell
 `dl.multiframe`, and nothing in an empty record."""
 
 import contextlib
@@ -21,10 +21,11 @@ from tetraear_tpu_torch.utils import metrics
 
 CPU = torch.device("cpu")
 INNER = ("dl.acquire", "dl.aach", "dl.channel", "dl.assemble", "viterbi")
-COUNTERS = ("viterbi.steps", "viterbi.blocks", "dl.slots", "dl.crc_checked",
-            "dl.crc_passed")
+COUNTERS = ("viterbi.steps", "viterbi.blocks", "viterbi.kernel", "dl.slots",
+            "dl.crc_checked", "dl.crc_passed")
 READERS = ("dl.decode.ms", "dl.demod.ms", "dl.acquire.ms", "dl.channel.ms",
-           "dl.assemble.ms", "dl.viterbi.ms", "dl.crc_yield")
+           "dl.assemble.ms", "dl.viterbi.ms", "dl.crc_yield",
+           "dl.viterbi_kernel_share")
 
 
 @pytest.fixture(scope="module")
@@ -127,7 +128,8 @@ def test_inner_spans_lie_under_the_decode(traced):
 
 def test_counters_count_what_was_done(traced):
     """viterbi.steps is the sum of the calls' trellis lengths and
-    viterbi.blocks of their blocks; dl.slots the frames (one a slot on
+    viterbi.blocks of their blocks, viterbi.kernel the blocks the CUDA
+    kernel decoded (none on the CPU); dl.slots the frames (one a slot on
     the grid), dl.crc_checked the frames whose crc_ok is not None and
     dl.crc_passed those that passed."""
     _, out, snap, _, n = traced
@@ -135,8 +137,8 @@ def test_counters_count_what_was_done(traced):
     checked = [f.crc_ok for f in frames if f.crc_ok is not None]
     assert snap["counters"] == {
         "viterbi.steps": n["steps"], "viterbi.blocks": n["blocks"],
-        "dl.slots": len(frames), "dl.crc_checked": len(checked),
-        "dl.crc_passed": sum(checked)}
+        "viterbi.kernel": 0, "dl.slots": len(frames),
+        "dl.crc_checked": len(checked), "dl.crc_passed": sum(checked)}
     assert 0 < sum(checked) < len(checked)
 
 
@@ -154,9 +156,9 @@ def test_reader_returns_nothing_on_an_empty_record(metric):
 
 
 def test_traced_harness_run_reads_the_seven_metrics():
-    """harness.run of the cell at the CPU's size, traced: the seven
+    """harness.run of the cell at the CPU's size, traced: the eight
     downlink metrics of the program's record, each within the others as
-    their spans are."""
+    their spans are, and on the CPU no block through the kernel."""
     cell = harness.Cell("dl.multiframe")
     cell.params.update(slots=24, ring_chunks=2)
     result, _ = harness.run(cell, 2**31 + 7, 1.0, True, "cpu", 0.0)
@@ -166,3 +168,19 @@ def test_traced_harness_run_reads_the_seven_metrics():
             <= m["dl.decode.ms"])
     assert m["dl.viterbi.ms"] <= m["dl.acquire.ms"] + m["dl.channel.ms"]
     assert m["dl.demod.ms"] > 0 and 0 < m["dl.crc_yield"] <= 100
+    assert m["dl.viterbi_kernel_share"] == 0
+
+
+@pytest.mark.parametrize("counters, share", [
+    ({"viterbi.blocks": 40, "viterbi.kernel": 40}, 100.0),
+    ({"viterbi.blocks": 40, "viterbi.kernel": 10}, 25.0),
+    ({"viterbi.blocks": 40}, None),
+    ({"viterbi.blocks": 0, "viterbi.kernel": 0}, None)])
+def test_kernel_share_reader(monkeypatch, counters, share):
+    """dl.viterbi_kernel_share is 100 x viterbi.kernel / viterbi.blocks;
+    a record without the kernel's counter (a program without the kernel)
+    or without blocks gives nothing."""
+    monkeypatch.setattr(metrics, "snapshot", lambda: {
+        "chunks": {"tetra.downlink": 2}, "spans": {}, "counters": counters,
+        "records": []})
+    assert harness.reader("dl.viterbi_kernel_share")({}) == share

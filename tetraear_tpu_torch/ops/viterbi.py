@@ -8,11 +8,15 @@ ETSI EN 300 392-2 section 8.2.3, generator polynomials
     G3 = 1 + D + D^2 + D^3 + D^4,  G4 = 1 + D + D^3 + D^4.
 
 Rate 2/3 (the control channels) keeps mother bits (0, 1, 4) of every 8.
-The decoder runs add-compare-select over (batch, 16) path metrics, one
-vectorised step per trellis step (the branch metrics of all steps come
-first, in one pass), then the traceback, one step per trellis step, on
-the tensor's device.  Punctured positions enter as zero soft values.
-The encoders are host numpy code, as in the reference.
+On a CUDA tensor the decoder is one launch of a hand-written kernel
+(`ops/kernels/viterbi`, `csrc/viterbi.cu`) over every trellis step and
+the traceback of every code block.  On a CPU tensor it is the plain
+version, `viterbi_decode_plain`: add-compare-select over (batch, 16)
+path metrics, one vectorised step per trellis step (the branch metrics
+of all steps come first, in one pass), then the traceback, one step per
+trellis step.  The two are equal bit for bit.  Punctured positions enter
+as zero soft values.  The encoders are host numpy code, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import time
 import numpy as np
 import torch
 
+from tetraear_tpu_torch.ops.kernels import viterbi as kernel
 from tetraear_tpu_torch.utils.metrics import record, tracing
 
 # tap masks over [u(k), u(k-1), u(k-2), u(k-3), u(k-4)]
@@ -115,13 +120,39 @@ def viterbi_decode(llrs: torch.Tensor, num_input_bits: int,
     path ends in the best state, the first on ties).  A tie between a
     state's two predecessors takes predecessor 0.
 
+    A CUDA tensor is decoded by one launch of the kernel, its blocks
+    first made contiguous float32 rows (the kernel's wrapper raises on
+    anything else, and on N past its MAX_STEPS, 341, which holds every
+    code the port decodes); a tensor elsewhere by `viterbi_decode_plain`.
+
     Under a profiler session (utils.metrics) each call is one inner span
     `viterbi`, the host time of its launches (counters `viterbi.steps`,
-    the trellis steps run, and `viterbi.blocks`, the code blocks).  It
-    lies inside whatever inner span its caller keeps: in the downlink,
+    the trellis steps run, `viterbi.blocks`, the code blocks, and
+    `viterbi.kernel`, the code blocks the kernel decoded).  It lies
+    inside whatever inner span its caller keeps: in the downlink,
     `dl.acquire` and `dl.channel` overlap it."""
     traced = tracing()
     t0 = time.perf_counter_ns() if traced else 0
+    rows = llrs.reshape(-1, RATE_DEN * num_input_bits)
+    if llrs.device.type == "cuda":
+        bits = kernel.viterbi(rows.to(torch.float32).contiguous(),
+                              num_input_bits, terminated)
+        decoded = bits.shape[0]
+    else:
+        bits = viterbi_decode_plain(rows, num_input_bits, terminated)
+        decoded = 0
+    if traced:
+        record("viterbi", time.perf_counter_ns() - t0, 1,
+               {"viterbi.steps": num_input_bits,
+                "viterbi.blocks": bits.shape[0], "viterbi.kernel": decoded})
+    return bits.reshape(llrs.shape[:-1] + (bits.shape[-1],))
+
+
+def viterbi_decode_plain(llrs: torch.Tensor, num_input_bits: int,
+                         terminated: bool = True) -> torch.Tensor:
+    """The plain version of `viterbi_decode`, with its contract, in
+    PyTorch on the tensor's device: the trellis steps one after another,
+    about 15 launches each on a card."""
     pred0, pred1, u_new, sign = _trellis()
     dev = llrs.device
     n = num_input_bits
@@ -160,9 +191,6 @@ def viterbi_decode(llrs: torch.Tensor, num_input_bits: int,
     bits = bits.t()
     if terminated:
         bits = bits[:, :n - 4]
-    if traced:
-        record("viterbi", time.perf_counter_ns() - t0, 1,
-               {"viterbi.steps": n, "viterbi.blocks": bsz})
     return bits.reshape(llrs.shape[:-1] + (bits.shape[-1],))
 
 
