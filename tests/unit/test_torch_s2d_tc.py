@@ -490,7 +490,7 @@ class TestOnCard:
         out = k1.s2d_conv_plain(x, fe.kernel_s2d, fe.gc, fe.L, fe.decim,
                                 bf16=True)
         c = out.shape[0] // 2
-        plain = fe.candidates(*fe.demod(out[:c], out[c:]))
+        plain = fe.candidates(*fe.demod((out[:c], out[c:])))
         fields = ("cand_valid", "cand_pos", "frame_bits", "crc_ok")
         a = {f: getattr(got, f).cpu().numpy() for f in fields}
         b = {f: getattr(plain, f).cpu().numpy() for f in fields}

@@ -18,7 +18,9 @@ same input within tests/unit/test_torch_parallel.py's tolerances.
 
 Every test ends within its own 55 s deadline (SIGALRM)."""
 
+import contextlib
 import importlib.util
+import io
 import json
 import os
 import re
@@ -334,25 +336,31 @@ def test_codec_quality_equals_jax_tool(monkeypatch, capsys, codec_dir,
 # --- sensitivity_sweep ------------------------------------------------------
 
 SWEEP_SNRS = ["-6", "-14", "-15"]
+SWEEP_ARGV = ["--slots", "12", "--seeds", "1", "--snrs", *SWEEP_SNRS]
 
 
 def test_sensitivity_sweep_equals_jax_tool(monkeypatch, capsys):
-    """--slots 12 --seeds 1 at -6, -14 and -15 dB: the JSON lines equal,
-    and every slot's CRC verdict equal to JAX's DownlinkReceiver's on the
-    same IQ (at -14 and -15 dB about half the slots sit at the edge)."""
-    from tetraear_tpu.models.downlink import (DownlinkConfig,
-                                              DownlinkReceiver,
-                                              DownlinkTransmitter)
-    from tetraear_tpu.utils.synth import make_mac_block_bits
-    argv = ["--slots", "12", "--seeds", "1", "--snrs", *SWEEP_SNRS]
-    assert _run_jax("sensitivity_sweep", argv, monkeypatch) == 0
+    """--slots 12 --seeds 1 at -6, -14 and -15 dB: the JSON lines equal
+    the JAX tool's."""
+    assert _run_jax("sensitivity_sweep", SWEEP_ARGV, monkeypatch) == 0
     want = _lines(capsys)
-    assert sensitivity_sweep.main([*argv, "--device", "cpu"]) == 0
+    assert sensitivity_sweep.main([*SWEEP_ARGV, "--device", "cpu"]) == 0
     assert _lines(capsys) == want
     rows = [json.loads(line) for line in want]
     assert [r["snr_wideband_db"] for r in rows] == [-6, -14, -15]
     assert rows[0]["crc_pass_rate"] >= 0.9 > rows[2]["crc_pass_rate"]
 
+
+def test_sensitivity_sweep_verdicts_equal_jax_receiver(capsys):
+    """The same sweep: each row the tool prints, and every slot's CRC
+    verdict equal to JAX's DownlinkReceiver's on the same IQ (at -14 and
+    -15 dB about half the slots sit at the edge)."""
+    from tetraear_tpu.models.downlink import (DownlinkConfig,
+                                              DownlinkReceiver,
+                                              DownlinkTransmitter)
+    from tetraear_tpu.utils.synth import make_mac_block_bits
+    assert sensitivity_sweep.main([*SWEEP_ARGV, "--device", "cpu"]) == 0
+    printed = _lines(capsys)
     tx = DownlinkTransmitter(DownlinkConfig())
     bits = tx.stream_bits(12, payloads={
         k: make_mac_block_bits(b"SENSITIVITY", seed=k)
@@ -363,7 +371,7 @@ def test_sensitivity_sweep_equals_jax_tool(monkeypatch, capsys):
         frames = DownlinkReceiver().receive(tx.modulate(
             bits, snr_db=float(snr), seed=0))
         assert verdicts == [[f.crc_ok for f in frames]], snr
-        assert json.dumps(row) in want
+        assert json.dumps(row) in printed
 
 
 # --- bench_scaling ----------------------------------------------------------
@@ -436,28 +444,59 @@ def _hold_etsi(got: dict, want, t_local: int) -> None:
     assert (err <= 1e-3).mean() >= 0.99 and err.max() <= 1e-2, err.max()
 
 
+BENCH_EXTRA = {"ref": ["--overhead"], "etsi": []}
+_BENCH_RUNS: dict = {}
+
+
+def _bench_port(profile: str, tmp_path_factory) -> tuple:
+    """The port's tool on the profile, run once for this module's three
+    tests of it: (printed lines, the directory of its <n>.npz results)."""
+    if profile not in _BENCH_RUNS:
+        out = tmp_path_factory.mktemp(f"bench_scaling_{profile}")
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            assert bench_scaling.main([*BENCH_ARGS, "--profile", profile,
+                                       *BENCH_EXTRA[profile]],
+                                      outputs=out) == 0
+        _BENCH_RUNS[profile] = printed.getvalue().splitlines(), out
+    return _BENCH_RUNS[profile]
+
+
 @pytest.mark.parametrize("profile", ["ref", "etsi"])
-def test_bench_scaling_equals_jax_tool(tmp_path, capsys, profile):
+def test_bench_scaling_rows(tmp_path_factory, profile):
     """--virtual 4 --per-device-samples 33800 --iters 1 (with --overhead
-    on the ref profile): the JAX tool's rows, meshes and keys; each mesh's
-    gathered result held against JAX's sharded step on the same input
-    (rates are the host's and are not compared)."""
-    extra = ["--overhead"] if profile == "ref" else []
-    want = _bench_jax(profile, extra)
-    assert bench_scaling.main([*BENCH_ARGS, "--profile", profile, *extra],
-                              outputs=tmp_path) == 0
-    got = _lines(capsys)
+    on the ref profile): one row per mesh, (1, 1), (1, 2) and (2, 2),
+    with the JAX tool's keys and a rate (the host's) above zero."""
+    got, _ = _bench_port(profile, tmp_path_factory)
+    assert got[0] == "# backend=cpu devices=4"
+    rows = [json.loads(line) for line in got[1:]]
+    keys = ["devices", "mesh", "samples_per_sec", "weak_scaling_efficiency"]
+    keys_n = keys + (["sharding_overhead_efficiency"]
+                     if BENCH_EXTRA[profile] else [])
+    assert [(r["devices"], r["mesh"], sorted(r)) for r in rows] == [
+        (1, [1, 1], sorted(keys)), (2, [1, 2], sorted(keys_n)),
+        (4, [2, 2], sorted(keys_n))]
+    assert all(r["samples_per_sec"] > 0 for r in rows)
+
+
+@pytest.mark.parametrize("profile", ["ref", "etsi"])
+def test_bench_scaling_equals_jax_tool(tmp_path_factory, profile):
+    """The JAX tool on the same arguments: the same header, rows, meshes
+    and keys (rates are the host's and are not compared)."""
+    got, _ = _bench_port(profile, tmp_path_factory)
+    want = _bench_jax(profile, BENCH_EXTRA[profile])
     assert got[0] == want[0] == "# backend=cpu devices=4"
     rows = [json.loads(line) for line in got[1:]]
     want_rows = [json.loads(line) for line in want[1:]]
-    keys = ["devices", "mesh", "samples_per_sec", "weak_scaling_efficiency"]
-    keys_n = keys + (["sharding_overhead_efficiency"] if extra else [])
     assert ([(r["devices"], r["mesh"], sorted(r)) for r in rows]
-            == [(r["devices"], r["mesh"], sorted(r)) for r in want_rows]
-            == [(1, [1, 1], sorted(keys)), (2, [1, 2], sorted(keys_n)),
-                (4, [2, 2], sorted(keys_n))])
-    assert all(r["samples_per_sec"] > 0 for r in rows)
+            == [(r["devices"], r["mesh"], sorted(r)) for r in want_rows])
 
+
+@pytest.mark.parametrize("profile", ["ref", "etsi"])
+def test_bench_scaling_results_hold_jax_steps(tmp_path_factory, profile):
+    """Each mesh's gathered result, as the port's tool saves it, held
+    against JAX's sharded step on the same input."""
+    _, out = _bench_port(profile, tmp_path_factory)
     import jax
     cfg = JaxReceiverConfig()
     for n, (carrier, time_axis), x, offsets in bench_scaling.block_inputs(
@@ -465,7 +504,7 @@ def test_bench_scaling_equals_jax_tool(tmp_path, capsys, profile):
         mesh = jmesh.make_mesh(carrier=carrier, time=time_axis,
                                devices=jax.devices()[:n])
         xs, offs = jsh.shard_inputs(mesh, jnp.asarray(x), offsets)
-        got_n = dict(np.load(tmp_path / f"{n}.npz"))
+        got_n = dict(np.load(out / f"{n}.npz"))
         if profile == "etsi":
             run, _ = jsh.build_sharded_step_etsi(
                 mesh, cfg, halo=bench_scaling.ETSI_HALO)

@@ -7,6 +7,7 @@ the benchmark's readers find them in a traced window; `decode
 
 import contextlib
 import json
+import re
 
 import numpy as np
 import pytest
@@ -14,7 +15,8 @@ import torch
 
 from benchmark import harness
 from tetraear_tpu_torch.core import decoder as decoder_mod
-from tetraear_tpu_torch.models import multicarrier
+from tetraear_tpu_torch.models import candidates, multicarrier
+from tetraear_tpu_torch.ops.channelizer import carrier_grid
 from tetraear_tpu_torch.ui import cli
 from tetraear_tpu_torch.utils import metrics
 
@@ -168,8 +170,9 @@ def test_off_records_nothing_and_changes_nothing(name, busy, monkeypatch):
     snap = metrics.snapshot()
     assert (snap["chunks"], snap["spans"], snap["counters"],
             snap["records"]) == ({}, {}, {}, [])
-    monkeypatch.setattr(multicarrier, "span",
-                        lambda name: contextlib.nullcontext())
+    for module in (multicarrier, candidates):
+        monkeypatch.setattr(module, "span",
+                            lambda name: contextlib.nullcontext())
     monkeypatch.setattr(decoder_mod, "tracing", lambda: False)
     _same(plain, run.loop())
 
@@ -324,3 +327,70 @@ def test_decode_trace_dir(tmp_path, monkeypatch, capsys, argv, chunk_spans):
     else:
         assert spans["chunks"] == {}
         assert spans["spans"]["sync"]["per_chunk_ms"] is None
+
+
+FRONTEND_SPANS = CHUNK_SPANS[:5]
+FRONTENDS = ([(conv, False) for conv in (
+    "staged", "fused", "s2d", "s2d_of", "pallas", "pallas_bf16",
+    "pallas_db", "pallas_of2", "pallas_of2_bf16")]
+    + [(conv, True) for conv in (
+        "gather", "fused", "s2d", "pallas", "pallas_bf16", "pallas_db")])
+
+
+@pytest.mark.parametrize("conv,pfb", FRONTENDS,
+                         ids=[f"{c}-{'pfb' if p else 'ddc'}"
+                              for c, p in FRONTENDS])
+def test_every_frontend_records_the_five_chunk_spans(conv, pfb):
+    """Every frontend build_frontend makes runs the one forward: a call
+    under a profiler session records each `tetra.frontend*` chunk span
+    once, the four stages inside `tetra.frontend`, in order."""
+    mc = multicarrier.build_frontend(conv, device="cpu", pfb=pfb,
+                                     offsets_hz=carrier_grid(4),
+                                     num_candidates=4)
+    r = np.random.default_rng(3)
+    x = ((r.standard_normal(20_000) + 1j * r.standard_normal(20_000))
+         * 0.1).astype(np.complex64)
+    metrics.RECORDER.on()               # no session: the next is fresh
+    with _profile():
+        res = mc(x, start_index=0)
+    records = metrics.snapshot()["records"]
+    assert [r["name"] for r in records] == list(FRONTEND_SPANS)
+    assert [r["parent"] for r in records] == [None, 0, 0, 0, 0]
+    assert all(r["end_ns"] is not None for r in records)
+    assert isinstance(res, candidates.MulticarrierResult)
+
+
+# build_frontend's refusals: (conv, pfb) -> the message it raises
+REFUSALS = {
+    ("gather", False):
+        "conv 'gather' is not a variant of the 16-carrier frontend",
+    ("nope", False): "unknown conv variant 'nope'; valid: staged, gather, "
+                     "fused, s2d, s2d_of, pallas, pallas_bf16, pallas_db, "
+                     "pallas_of<N>, pallas_of<N>_bf16",
+    ("pallas_of", False): "unknown variant 'pallas_of'; valid: "
+                          "pallas_of<N>, pallas_of<N>_bf16",
+    ("pallas_of7", False): "K1-of: ich*fold = 20*7 = 140 > 128 (or fold "
+                           "< 1); lower the fold for this decimation",
+    ("pallas_of4_f16", False): "unknown variant 'pallas_of4_f16'; valid: "
+                               "pallas_of<N>, pallas_of<N>_bf16",
+    ("pallas_of<N>_bf16", False): "unknown variant 'pallas_of<N>_bf16'; "
+                                  "valid: pallas_of<N>, pallas_of<N>_bf16",
+    ("staged", True):
+        "conv 'staged' is not a variant of the full-band frontend",
+    ("s2d_of", True):
+        "conv 's2d_of' is not a variant of the full-band frontend",
+    ("pallas_of4_bf16", True):
+        "conv 'pallas_of4_bf16' is not a variant of the full-band frontend",
+    ("s2d_mono", True): "unknown conv variant 's2d_mono'; valid: staged, "
+                        "gather, fused, s2d, s2d_of, pallas, pallas_bf16, "
+                        "pallas_db, pallas_of<N>, pallas_of<N>_bf16",
+}
+
+
+@pytest.mark.parametrize("conv,pfb", list(REFUSALS),
+                         ids=[f"{c}-{'pfb' if p else 'ddc'}"
+                              for c, p in REFUSALS])
+def test_build_frontend_refuses_with_its_message(conv, pfb):
+    with pytest.raises(ValueError, match=re.escape(REFUSALS[conv, pfb])):
+        multicarrier.build_frontend(conv, device="cpu", pfb=pfb,
+                                    offsets_hz=carrier_grid(4))

@@ -156,16 +156,6 @@ def _digest(out):
     return out.sync_corr.sum() + out.count.sum().float()
 
 
-def _conv_kernel(conv: str) -> str | None:
-    """The launch counter of a multicarrier conv's kernel; None for the
-    plain F.conv1d convs."""
-    if conv.startswith("pallas_of"):
-        return "s2d_conv_of_bf16" if conv.endswith("_bf16") else "s2d_conv_of"
-    return {"pallas": "s2d_conv", "pallas_bf16": "s2d_conv_bf16",
-            "pallas_db": "s2d_conv_db", "staged": "fused_channelize"
-            }.get(conv)
-
-
 def tier_program(tier: str, num_carriers: int, scale: int,
                  device) -> TierProgram:
     """The tier's frontend on `device`, its digest and its two input
@@ -173,7 +163,8 @@ def tier_program(tier: str, num_carriers: int, scale: int,
     import torch
 
     from tetraear_tpu_torch.config import ReceiverConfig
-    from tetraear_tpu_torch.models.multicarrier import build_frontend
+    from tetraear_tpu_torch.models.multicarrier import (build_frontend,
+                                                        conv_variant)
     from tetraear_tpu_torch.models.realpair import RealPairFrontend
     from tetraear_tpu_torch.models.receiver import Frontend
 
@@ -195,14 +186,14 @@ def tier_program(tier: str, num_carriers: int, scale: int,
         variant = TIERS.get(tier, f"{tier}_demod_decode")
         return TierProgram(lambda x: mc(x, start_index=0), _digest,
                            put(xs_np), n, variant, num_carriers,
-                           _conv_kernel(conv))
+                           conv_variant(conv).kernel)
     if tier == "pfb":
         conv = _pfb_variant()          # checked on every device
         if device.type == "cpu":
             conv = "gather"
         mc = build_frontend(conv, pfb=True, config=cfg, **kw)
         return TierProgram(mc, _digest, put(xs_np), n, TIERS[tier], 96,
-                           _conv_kernel(conv))
+                           conv_variant(conv, pfb=True).kernel)
     if tier in ("realpair64", "realpair0"):
         kw["num_candidates"] = 64 if tier == "realpair64" else 0
         rp = RealPairFrontend.from_offsets(offsets, cfg, **kw)

@@ -1,7 +1,9 @@
 """The candidates stage shared by every multicarrier frontend (port of
 `tetraear_tpu.models.multicarrier.extract_candidates`): top-K sync
 positions per carrier, their 510-bit frame windows and batched soft-CRC
-verdicts, as fixed-K tensors with validity masks."""
+verdicts, as fixed-K tensors with validity masks; and `CandidateStage`,
+the frontends' base, whose `forward` is the one chain of the
+multicarrier frontends (chunk copy, channelize, demod, candidates)."""
 
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from torch import nn
 
 from tetraear_tpu_torch import constants as C
 from tetraear_tpu_torch.ops.crc import crc_tables, soft_crc_check_batch
+from tetraear_tpu_torch.utils.metrics import span
 
 _SEG = 128   # segment of the hierarchical top-K
 
@@ -90,7 +93,8 @@ def candidate_stage(bits: torch.Tensor, corr: torch.Tensor,
 class CandidateStage(nn.Module):
     """Base of the frontends: the samples per symbol, the candidate
     budget K and threshold, and the CRC matrix as buffers (crc_a,
-    crc_c0) on the module's device."""
+    crc_c0) on the module's device.  `forward` runs a subclass's hooks:
+    `channelize(x, start_index)`, then `demod` on what it returned."""
 
     def __init__(self, *, sps: int, device, num_candidates: int = 64,
                  threshold: float = 0.80):
@@ -114,3 +118,23 @@ class CandidateStage(nn.Module):
         """The candidates stage over a demod result -> MulticarrierResult."""
         return candidate_stage(bits, corr, count, self.num_candidates,
                                self.threshold, self.crc_a, self.crc_c0)
+
+    def to_device(self, x) -> torch.Tensor:
+        """The chunk (numpy or tensor) as complex64 on the module's
+        device: the host-to-device copy of every multicarrier frontend."""
+        return torch.as_tensor(x, device=self.device).to(torch.complex64)
+
+    def forward(self, x, start_index: int = 0) -> MulticarrierResult:
+        """x: (N,) complex IQ (numpy or tensor); `start_index`, the
+        block's first sample index, reaches `channelize` (only the staged
+        chain's mixer reads it).  Each stage is a chunk span
+        (utils.metrics) in `tetra.frontend`."""
+        with span("tetra.frontend"):
+            with span("tetra.frontend.h2d"):
+                x = self.to_device(x)
+            with span("tetra.frontend.channelize"):
+                y = self.channelize(x.contiguous(), start_index)
+            with span("tetra.frontend.demod"):
+                demod = self.demod(y)
+            with span("tetra.frontend.candidates"):
+                return self.candidates(*demod)

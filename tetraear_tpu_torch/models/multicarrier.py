@@ -3,30 +3,24 @@ decode, port of `tetraear_tpu.models.multicarrier`: one wideband IQ
 block -> per-carrier bits, dense sync scores and fixed-K frame candidates
 with soft-CRC verdicts, with only MAC/SDS parsing left to the host.
 
-Stages of `MulticarrierFrontend.forward`:
-  1. the composite s2d conv (mixer + decimating FIR + channel FIR), by
-     the conv named in CONV_VARIANTS: a plain F.conv1d version or a
-     hand-written kernel (K1, K1-of, K3), or the legacy strided dense
-     conv ("fused");
-  2. the real-pair demod tail (models.realpair._demod_from_pair), or for
-     the 16-carrier "fused" conv the complex demod front (_demod_front);
-  3. the candidates stage (models.candidates.extract_candidates): top-K
-     sync positions, 510-bit frame windows, batched soft CRC.
-`PfbMulticarrierFrontend` runs the same stages over all 96 channels of
-the 25 kHz grid at 2.4 MS/s, its conv the polyphase filterbank as one
-dense conv (`ops.fused.pfb_kernel`, 192 rows).
-The staged chains, the reference's `fused=False`, are frontends of their
-own: `StagedMulticarrierFrontend` (channelize — K5 on the card — then
-the channel FIR and `_demod_front`) and `GatherPfbFrontend` (the
-gather-form filterbank, then `_demod_front`).  `build_frontend` maps a
-conv name to its frontend; `MulticarrierDecoder` is the host decode over
-any of their results.
+Every frontend here runs `CandidateStage.forward`: the chunk copy, its
+own `channelize` and `demod`, the candidates stage.
+`MulticarrierFrontend` convolves with the composite s2d kernel (mixer +
+decimating FIR + channel FIR) by the conv its CONV_VARIANTS entry names,
+then runs the real-pair tail (or for "fused" the complex demod front);
+`PfbMulticarrierFrontend` does so over all 96 channels of the 25 kHz
+grid at 2.4 MS/s with the filterbank as one dense conv (192 rows).  The
+staged chains, the reference's `fused=False`, are
+`StagedMulticarrierFrontend` (K5 on the card, then the channel FIR) and
+`GatherPfbFrontend` (the gather-form filterbank), then `_demod_front`.
+`conv_variant` is the one parse and check of a conv name, and
+`build_frontend` makes the frontend that runs it.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import NamedTuple
+from dataclasses import dataclass, replace
+from typing import Callable
 
 import numpy as np
 import torch
@@ -45,51 +39,6 @@ from tetraear_tpu_torch.ops.kernels.s2d_conv import (
     tc_pack_k1)
 from tetraear_tpu_torch.ops.timing import best_phase_pick
 from tetraear_tpu_torch.utils.metrics import span
-
-
-class ConvVariant(NamedTuple):
-    runs: str    # what runs the channelizer
-    cli: bool    # a --conv choice of the reference's CLI
-    pfb: bool    # a variant of the full-band (PFB) frontend
-    ddc: bool    # a variant of the 16-carrier (DDC-bank) frontend
-
-
-# conv name -> ConvVariant; the names keep the reference's, and its
-# `fused=` argument maps to them: False -> "staged" (DDC bank) or
-# "gather" (PFB), True -> "fused", a string -> the same name.  <N> is a
-# fold (2D * N <= 128).  build_frontend and the CLI read this table.
-CONV_VARIANTS = {
-    "staged": ConvVariant("the staged chain (fused=False): channelize, "
-                          "K5 (csrc/fused_channelize.cu) on CUDA and the "
-                          "mixer + strided F.conv1d on the CPU, then the "
-                          "channel FIR", cli=False, pfb=False, ddc=True),
-    "gather": ConvVariant("the gather-form polyphase filterbank "
-                          "(fused=False): window gathers, fold, IFFT",
-                          cli=False, pfb=True, ddc=False),
-    "fused": ConvVariant("the legacy dense conv (fused=True): stride-D "
-                         "F.conv1d of the (2C, 2, L) kernel, f32",
-                         cli=False, pfb=True, ddc=True),
-    "s2d": ConvVariant("plain F.conv1d, f32", cli=True, pfb=True, ddc=True),
-    "s2d_of": ConvVariant("plain F.conv1d with fold = max(1, min(8, "
-                          "128 // C2)) output positions folded into rows, "
-                          "f32", cli=True, pfb=False, ddc=True),
-    "pallas": ConvVariant("K1 (csrc/s2d_conv.cu), f32 operands",
-                          cli=True, pfb=True, ddc=True),
-    "pallas_bf16": ConvVariant("K1 (csrc/s2d_conv_tc.cu), bf16 operands on "
-                               "the tensor cores, f32 accumulation",
-                               cli=True, pfb=True, ddc=True),
-    "pallas_db": ConvVariant("K3 (csrc/s2d_conv_db.cu): K1 with the next "
-                             "tile's input prefetched by cp.async, f32",
-                             cli=False, pfb=True, ddc=True),
-    "pallas_of<N>": ConvVariant("K1-of (csrc/s2d_conv.cu, fold N), f32 "
-                                "operands", cli=False, pfb=False, ddc=True),
-    "pallas_of<N>_bf16": ConvVariant("K1-of (csrc/s2d_conv_tc.cu, fold N), "
-                                     "bf16 operands on the tensor cores, "
-                                     "f32 accumulation",
-                                     cli=False, pfb=False, ddc=True),
-}
-PFB_CONV_VARIANTS = tuple(k for k, v in CONV_VARIANTS.items() if v.pfb)
-_STAGED = ("staged", "gather")   # frontends of their own
 
 
 def _demod_front(y: torch.Tensor, sps: int,
@@ -116,28 +65,48 @@ def _demod_front(y: torch.Tensor, sps: int,
     return bits, corr, ts.count
 
 
-def _demod_tail(y: torch.Tensor, sps: int, k: int, threshold: float,
-                crc: tuple) -> MulticarrierResult:
-    """_demod_front then the candidates stage; crc = (crc_a, crc_c0)."""
-    return candidate_stage(*_demod_front(y, sps), k, threshold, *crc)
+# the composite convs: (frontend, x, gc, L, decim) -> un-derotated (yr, yi)
+
+def _conv_dense(fe, x, gc, L, decim):
+    return fused.fused_channelize_ri(x, fe.kernel, gc, None, decim,
+                                     rotate=False)
 
 
-def conv_fold(conv: str, c2: int, decim: int) -> tuple:
-    """conv name -> (fold, bf16): fold 0 for the un-folded convs.  An
-    unknown name, a staged chain or a fold K1-of does not take raises."""
-    if conv.startswith("pallas_of"):
-        fold, bf16 = parse_fold(conv, "pallas_of")
-        check_fold(fold, decim)
-        return fold, bf16
-    if conv == "s2d_of":
-        return max(1, min(8, 128 // c2)), False
-    if conv in _STAGED:
-        raise ValueError(f"conv {conv!r} is a frontend of its own: "
-                         "build_frontend makes it")
-    if conv not in CONV_VARIANTS or "<" in conv:
-        raise ValueError(f"unknown conv variant {conv!r}; valid: "
-                         + ", ".join(CONV_VARIANTS))
-    return 0, conv == "pallas_bf16"
+def _conv_s2d(fe, x, *geometry):
+    return fused.fused_channelize_s2d_ri(x, fe.kernel_s2d, *geometry)
+
+
+def _conv_s2d_of(fe, x, *geometry):
+    return fused.fused_channelize_s2d_of_ri(x, fe.kernel_of, *geometry,
+                                            fe.fold)
+
+
+def _conv_k1(fe, x, *geometry):
+    return fused.pair_rows(s2d_conv(x, fe.kernel_s2d, *geometry,
+                                    bf16=fe.bf16, tc=fe.packed()))
+
+
+def _conv_k1_of(fe, x, *geometry):
+    return fused.pair_rows(s2d_conv_of(x, fe.kernel_of, *geometry, fe.fold,
+                                       bf16=fe.bf16, tc=fe.packed()))
+
+
+def _conv_k3(fe, x, *geometry):
+    return fused.pair_rows(s2d_conv_db(x, fe.kernel_s2d, *geometry))
+
+
+@dataclass(frozen=True)
+class ConvVariant:
+    """Everything a conv name decides: one entry of CONV_VARIANTS."""
+    runs: str              # what runs the channelizer (--conv's help)
+    frontends: tuple       # (DDC-bank class, full-band class), or None
+    cli: bool = False      # a --conv choice of the reference's CLI
+    channelize: Callable | None = None   # None: a frontend of its own
+    weights: str = "kernel_s2d"          # the buffer the conv reads
+    fold: int | None = 0   # None: the most, up to 8, in 128 rows
+    bf16: bool = False     # bf16 operands (the tensor cores on a card)
+    complex_demod: bool = False   # on the DDC bank, the complex front
+    kernel: str | None = None     # its kernel's launch counter
 
 
 @dataclass(frozen=True)
@@ -170,28 +139,36 @@ def state_from_reference(kernel, gc: int, rot_cycles, decim: int,
 
 class MulticarrierFrontend(CandidateStage):
     """Device pipeline for one carrier-offset set: composite conv ->
-    demod tail -> candidates.  Buffers: the s2d kernel (its folded form
-    for the folded convs, the (2C, 2, L) kernel for "fused"), the z
-    rotation (cos, sin) and the CRC matrix.  `conv` names a CONV_VARIANTS
-    entry."""
+    demod -> candidates, as the entry of `conv` (CONV_VARIANTS) says.
+    Buffers: the s2d kernel, the weights the conv reads beside it (the
+    folded kernel, or the (2C, 2, L) kernel for "fused"), the packed
+    tensor-core weights of a bf16 conv on a card, the z rotation (cos,
+    sin) and the CRC matrix."""
+
+    full_band = False
 
     def __init__(self, state: FrontendState, *, sps: int, device,
                  num_candidates: int = 64, threshold: float = 0.80,
                  conv: str = "pallas_bf16"):
         super().__init__(sps=sps, device=device,
                          num_candidates=num_candidates, threshold=threshold)
-        self.fold, self.bf16 = conv_fold(conv, state.kernel_s2d.shape[0],
-                                         state.decim)
-        self.conv = conv
+        self.variant = conv_variant(conv, pfb=self.full_band,
+                                    decim=state.decim)
+        if self.variant.channelize is None:
+            raise _refusal(f"conv {conv!r} is a frontend of its own: "
+                           "build_frontend makes it", self.full_band)
+        self.conv, self.bf16 = conv, self.variant.bf16
+        fold, c2 = self.variant.fold, state.kernel_s2d.shape[0]
+        self.fold = max(1, min(8, 128 // c2)) if fold is None else fold
         self.gc, self.L, self.decim = state.gc, state.L, state.decim
         device = torch.device(device)
         self.register_buffer("kernel_s2d", torch.as_tensor(
             state.kernel_s2d, dtype=torch.float32, device=device))
-        if self.fold:
+        if self.variant.weights == "kernel_of":
             self.register_buffer("kernel_of", torch.as_tensor(
                 fused.fold_s2d_kernel(state.kernel_s2d, self.fold),
                 device=device))
-        if conv == "fused":
+        elif self.variant.weights == "kernel":
             self.register_buffer("kernel", torch.as_tensor(
                 state.kernel, dtype=torch.float32, device=device))
         # the tensor-core route's packed weights, made once (on a card)
@@ -230,55 +207,25 @@ class MulticarrierFrontend(CandidateStage):
                                      cfg.decimation_factor, sps)
         return cls(state, sps=sps, **kwargs)
 
-    def channelize(self, x: torch.Tensor) -> tuple:
-        """(N,) complex64 on the module's device -> un-derotated (yr, yi)."""
-        if self.conv == "fused":
-            return fused.fused_channelize_ri(x, self.kernel, self.gc, None,
-                                             self.decim, rotate=False)
-        args = (self.gc, self.L, self.decim)
-        if self.conv == "s2d":
-            return fused.fused_channelize_s2d_ri(x, self.kernel_s2d, *args)
-        if self.conv == "s2d_of":
-            return fused.fused_channelize_s2d_of_ri(x, self.kernel_of, *args,
-                                                    self.fold)
-        if self.conv == "pallas_db":
-            out = s2d_conv_db(x, self.kernel_s2d, *args)
-        else:
-            tc = self.tc and self.tc._replace(packed=self.kernel_tc)
-            if self.fold:
-                out = s2d_conv_of(x, self.kernel_of, *args, self.fold,
-                                  bf16=self.bf16, tc=tc)
-            else:
-                out = s2d_conv(x, self.kernel_s2d, *args, bf16=self.bf16,
-                               tc=tc)
-        c = out.shape[0] // 2
-        return out[:c], out[c:]
+    def channelize(self, x: torch.Tensor, start_index: int = 0) -> tuple:
+        """(N,) complex64 on the module's device -> un-derotated (yr, yi).
+        The rotation is deferred to z as a per-carrier constant, so
+        `start_index` is not read."""
+        return self.variant.channelize(self, x, self.gc, self.L, self.decim)
 
-    def demod(self, yr: torch.Tensor, yi: torch.Tensor) -> tuple:
-        """(bits, sync scores, count) of the un-derotated pair: the real-
-        pair tail, or for the 16-carrier "fused" conv the reference's
-        complex demod front."""
+    def packed(self):
+        """The tensor-core route's packed weights (None off the route)."""
+        return self.tc and self.tc._replace(packed=self.kernel_tc)
+
+    def demod(self, y: tuple) -> tuple:
+        """(bits, sync scores, count) of the un-derotated (yr, yi): the
+        real-pair tail, or for "fused" on the DDC bank the complex demod
+        front; the full band takes the real-pair tail for every conv."""
         z_rot = (self.z_cos, self.z_sin)
-        if self.conv == "fused":
-            return _demod_front(torch.complex(yr, yi), self.sps, z_rot)
-        res = _demod_from_pair(yr, yi, self.sps, z_rot=z_rot)
+        if self.variant.complex_demod and not self.full_band:
+            return _demod_front(torch.complex(*y), self.sps, z_rot)
+        res = _demod_from_pair(*y, self.sps, z_rot=z_rot)
         return res.bits, res.sync_corr, res.count
-
-    def forward(self, x, start_index: int = 0) -> MulticarrierResult:
-        """x: (N,) complex IQ (numpy or tensor), moved to the module's
-        device.  `start_index` (the block's first sample index) is taken
-        for parity with the reference's call: the rotation is deferred to
-        z as a per-carrier constant, so the result does not depend on it.
-        Each stage is a chunk span (utils.metrics) in `tetra.frontend`."""
-        with span("tetra.frontend"):
-            with span("tetra.frontend.h2d"):
-                x = torch.as_tensor(x, device=self.device).to(torch.complex64)
-            with span("tetra.frontend.channelize"):
-                yr, yi = self.channelize(x.contiguous())
-            with span("tetra.frontend.demod"):
-                demod = self.demod(yr, yi)
-            with span("tetra.frontend.candidates"):
-                return self.candidates(*demod)
 
 
 class PfbMulticarrierFrontend(MulticarrierFrontend):
@@ -290,12 +237,10 @@ class PfbMulticarrierFrontend(MulticarrierFrontend):
     channel.  Row c is the channel at `channel_offsets_hz()[c]` (fftfreq
     order).  The gather form (fused=False) is `GatherPfbFrontend`."""
 
+    full_band = True
+
     def __init__(self, state: FrontendState, *, sample_rate_hz: float,
                  conv: str = "pallas_bf16", **kwargs):
-        if conv not in PFB_CONV_VARIANTS or conv in _STAGED:
-            raise ValueError(f"unknown PFB conv variant {conv!r}; valid: "
-                             + ", ".join(v for v in PFB_CONV_VARIANTS
-                                         if v not in _STAGED))
         super().__init__(state, conv=conv, **kwargs)
         self.sample_rate_hz = sample_rate_hz
         self.num_channels = state.kernel_s2d.shape[0] // 2
@@ -321,11 +266,6 @@ class PfbMulticarrierFrontend(MulticarrierFrontend):
         return super().from_reference(kernel, gc, rot_cycles, cfg,
                                        sample_rate_hz=cfg.sample_rate_hz,
                                        **kwargs)
-
-    def demod(self, yr: torch.Tensor, yi: torch.Tensor) -> tuple:
-        res = _demod_from_pair(yr, yi, self.sps,
-                               z_rot=(self.z_cos, self.z_sin))
-        return res.bits, res.sync_corr, res.count
 
     def channel_offsets_hz(self) -> np.ndarray:
         """Center frequency of each channel row (fftfreq order)."""
@@ -365,11 +305,8 @@ class StagedMulticarrierFrontend(CandidateStage):
                        self.taps_d, start_index)
         return fir_filter_same(y, self.taps_c)
 
-    def forward(self, x, start_index: int = 0) -> MulticarrierResult:
-        x = torch.as_tensor(x, device=self.device).to(torch.complex64)
-        y = self.channelize(x.contiguous(), start_index)
-        return _demod_tail(y, self.sps, self.num_candidates, self.threshold,
-                           (self.crc_a, self.crc_c0))
+    def demod(self, y: torch.Tensor) -> tuple:
+        return _demod_front(y, self.sps)
 
 
 class GatherPfbFrontend(CandidateStage):
@@ -394,13 +331,89 @@ class GatherPfbFrontend(CandidateStage):
     def channel_offsets_hz(self) -> np.ndarray:
         return pfb.channel_offsets_hz(self.num_channels, self.sample_rate_hz)
 
-    def forward(self, x, start_index: int = 0) -> MulticarrierResult:
-        """x: (N,) complex IQ; `start_index` is taken for the CLI's call
-        and not used, as in the reference."""
-        x = torch.as_tensor(x, device=self.device).to(torch.complex64)
-        y = pfb.pfb_channelize(x, self.num_channels, self.decim, self.taps)
-        return _demod_tail(y, self.sps, self.num_candidates, self.threshold,
-                           (self.crc_a, self.crc_c0))
+    def channelize(self, x: torch.Tensor, start_index: int = 0
+                   ) -> torch.Tensor:
+        """(N,) complex64 -> (96, ceil(N/D)) complex64 channels;
+        `start_index` is not read, as in the reference."""
+        return pfb.pfb_channelize(x, self.num_channels, self.decim,
+                                  self.taps)
+
+    def demod(self, y: torch.Tensor) -> tuple:
+        return _demod_front(y, self.sps)
+
+
+_MC, _PFB = MulticarrierFrontend, PfbMulticarrierFrontend
+
+# conv name -> ConvVariant; the names keep the reference's, and its
+# `fused=` argument maps to them: False -> "staged" (DDC bank) or
+# "gather" (PFB), True -> "fused", a string -> the same name.  <N> is a
+# fold (2D * N <= 128).  A new conv is one entry and its kernel wrapper.
+CONV_VARIANTS = {
+    "staged": ConvVariant(
+        "the staged chain (fused=False): channelize, K5 "
+        "(csrc/fused_channelize.cu) on CUDA and the mixer + strided "
+        "F.conv1d on the CPU, then the channel FIR",
+        (StagedMulticarrierFrontend, None), kernel="fused_channelize"),
+    "gather": ConvVariant(
+        "the gather-form polyphase filterbank (fused=False): window "
+        "gathers, fold, IFFT", (None, GatherPfbFrontend)),
+    "fused": ConvVariant(
+        "the legacy dense conv (fused=True): stride-D F.conv1d of the "
+        "(2C, 2, L) kernel, f32", (_MC, _PFB), channelize=_conv_dense,
+        weights="kernel", complex_demod=True),
+    "s2d": ConvVariant("plain F.conv1d, f32", (_MC, _PFB), cli=True,
+                       channelize=_conv_s2d),
+    "s2d_of": ConvVariant(
+        "plain F.conv1d with fold = max(1, min(8, 128 // C2)) output "
+        "positions folded into rows, f32", (_MC, None), cli=True,
+        channelize=_conv_s2d_of, weights="kernel_of", fold=None),
+    "pallas": ConvVariant("K1 (csrc/s2d_conv.cu), f32 operands",
+                          (_MC, _PFB), cli=True, channelize=_conv_k1,
+                          kernel="s2d_conv"),
+    "pallas_bf16": ConvVariant(
+        "K1 (csrc/s2d_conv_tc.cu), bf16 operands on the tensor cores, f32 "
+        "accumulation", (_MC, _PFB), cli=True, channelize=_conv_k1,
+        bf16=True, kernel="s2d_conv_bf16"),
+    "pallas_db": ConvVariant(
+        "K3 (csrc/s2d_conv_db.cu): K1 with the next tile's input "
+        "prefetched by cp.async, f32", (_MC, _PFB), channelize=_conv_k3,
+        kernel="s2d_conv_db"),
+    "pallas_of<N>": ConvVariant(
+        "K1-of (csrc/s2d_conv.cu, fold N), f32 operands", (_MC, None),
+        channelize=_conv_k1_of, weights="kernel_of", kernel="s2d_conv_of"),
+    "pallas_of<N>_bf16": ConvVariant(
+        "K1-of (csrc/s2d_conv_tc.cu, fold N), bf16 operands on the tensor "
+        "cores, f32 accumulation", (_MC, None), channelize=_conv_k1_of,
+        weights="kernel_of", bf16=True, kernel="s2d_conv_of_bf16"),
+}
+
+
+def _refusal(message: str, pfb: bool) -> ValueError:
+    """`message`, then the convs of the frontend asked for."""
+    return ValueError(f"{message}; {'PFB' if pfb else '16-carrier'} convs: "
+                      + ", ".join(k for k, v in CONV_VARIANTS.items()
+                                  if v.frontends[pfb]))
+
+
+def conv_variant(conv: str, *, pfb: bool = False,
+                 decim: int | None = None) -> ConvVariant:
+    """The entry of conv name `conv` on the full band (pfb=True) or the
+    DDC bank: the one parse and check of a conv name.  pallas_of<N> and
+    pallas_of<N>_bf16 come with their fold N, which K1-of must take at
+    decimation `decim` (the default configuration's if None).  An unknown
+    name, a conv of the other frontend or such a fold raises."""
+    name = "pallas_of<N>" if conv.startswith("pallas_of") else conv
+    if name not in CONV_VARIANTS:
+        raise _refusal(f"unknown conv variant {conv!r}; valid: "
+                       + ", ".join(CONV_VARIANTS), pfb)
+    if CONV_VARIANTS[name].frontends[pfb] is None:
+        raise _refusal(f"conv {conv!r} is not a variant of the "
+                       f"{'full-band' if pfb else '16-carrier'} frontend", pfb)
+    if name != "pallas_of<N>":
+        return CONV_VARIANTS[name]
+    fold, bf16 = parse_fold(conv, "pallas_of")
+    check_fold(fold, decim or ReceiverConfig().decimation_factor)
+    return replace(CONV_VARIANTS[name + "_bf16" if bf16 else name], fold=fold)
 
 
 def build_frontend(conv: str, *, device, pfb: bool = False,
@@ -408,27 +421,17 @@ def build_frontend(conv: str, *, device, pfb: bool = False,
                    **kwargs) -> CandidateStage:
     """The frontend that runs `conv` (a CONV_VARIANTS name) on `device`:
     the full band with pfb=True, else the DDC bank on `offsets_hz`."""
-    if conv.startswith("pallas_of"):
-        variant = CONV_VARIANTS["pallas_of<N>"]
-    elif conv in CONV_VARIANTS:
-        variant = CONV_VARIANTS[conv]
-    else:
-        raise ValueError(f"unknown conv variant {conv!r}; valid: "
-                         + ", ".join(CONV_VARIANTS))
-    if not (variant.pfb if pfb else variant.ddc):
-        raise ValueError(f"conv {conv!r} is not a variant of the "
-                         f"{'full-band' if pfb else '16-carrier'} frontend")
-    if conv == "gather":
-        return GatherPfbFrontend(config, device=device, **kwargs)
+    cfg = config or ReceiverConfig()
+    cls = conv_variant(conv, pfb=pfb,
+                       decim=cfg.decimation_factor).frontends[pfb]
+    if cls is GatherPfbFrontend:
+        return cls(cfg, device=device, **kwargs)
+    if cls is StagedMulticarrierFrontend:
+        return cls.from_offsets(offsets_hz, cfg, device=device, **kwargs)
     if pfb:
-        return PfbMulticarrierFrontend.from_config(config, device=device,
-                                                   conv=conv, **kwargs)
-    if conv == "staged":
-        return StagedMulticarrierFrontend.from_offsets(
-            offsets_hz, config, device=device, **kwargs)
-    return MulticarrierFrontend.from_offsets(offsets_hz, config,
-                                             device=device, conv=conv,
-                                             **kwargs)
+        return cls.from_config(cfg, device=device, conv=conv, **kwargs)
+    return cls.from_offsets(offsets_hz, cfg, device=device, conv=conv,
+                            **kwargs)
 
 
 class MulticarrierDecoder:

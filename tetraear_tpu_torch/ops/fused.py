@@ -114,6 +114,12 @@ def _rotation_period(rot_cycles: np.ndarray, max_q: int = 4608) -> int:
     return 0
 
 
+def pair_rows(out: torch.Tensor) -> tuple:
+    """A conv's (2C, M) output, rows [re.., im..] -> (yr, yi)."""
+    c = out.shape[0] // 2
+    return out[:c], out[c:]
+
+
 def _strided_conv(x: torch.Tensor, kernel, gc: int, decim: int) -> tuple:
     """Un-derotated (yr, yi) of the stride-D conv of the (2C, 2, L)
     kernel, m = ceil(N/D) outputs: output m reads x[mD + gc - u]."""
@@ -123,9 +129,7 @@ def _strided_conv(x: torch.Tensor, kernel, gc: int, decim: int) -> tuple:
     pad_l = k.shape[-1] - 1 - gc
     pad_r = max(0, (m_out - 1) * decim + gc + 1 - n)
     xri = F.pad(torch.stack([x.real, x.imag])[None], (pad_l, pad_r))
-    out = fir.conv1d_f32(xri, k, decim)[0]                   # (2C, M)
-    c = out.shape[0] // 2
-    return out[:c], out[c:]
+    return pair_rows(fir.conv1d_f32(xri, k, decim)[0])
 
 
 def _rotation(rot_cycles, gc: int, decim: int, m_out: int, start_index,
@@ -214,19 +218,16 @@ def fused_channelize_s2d_ri(x: torch.Tensor, kernel_s2d, gc: int, L: int,
                             decim: int) -> tuple:
     """(yr, yi) f32 (C, ceil(N/D)): the un-derotated pair of the s2d conv,
     the real-pair tail's feed."""
-    out = s2d_conv_plain(x, _weights(kernel_s2d, x.device), gc, L, decim)
-    c = out.shape[0] // 2
-    return out[:c], out[c:]
+    return pair_rows(s2d_conv_plain(x, _weights(kernel_s2d, x.device), gc,
+                                    L, decim))
 
 
 def fused_channelize_s2d_of_ri(x: torch.Tensor, kernel_of, gc: int, L: int,
                                decim: int, fold: int) -> tuple:
     """(yr, yi): fused_channelize_s2d_ri's values by the output-folded s2d
     conv of the (2C fold, 2D, Lp + fold - 1) kernel (`s2d_of_kernel`)."""
-    out = s2d_conv_of_plain(x, _weights(kernel_of, x.device), gc, L, decim,
-                            fold)
-    c = out.shape[0] // 2
-    return out[:c], out[c:]
+    return pair_rows(s2d_conv_of_plain(x, _weights(kernel_of, x.device), gc,
+                                       L, decim, fold))
 
 
 def s2d_kernel(kernel: np.ndarray, decim: int) -> np.ndarray:

@@ -454,16 +454,18 @@ def _decode_multicarrier(args, source, dev: torch.device) -> int:
     import numpy as np
     from tetraear_tpu_torch.io.recorder import JsonlFrameRecorder
     from tetraear_tpu_torch.models.multicarrier import (
-        MulticarrierDecoder, build_frontend)
+        MulticarrierDecoder, build_frontend, conv_variant)
     from tetraear_tpu_torch.ops.channelizer import carrier_grid
     from tetraear_tpu_torch.ops.spectrum import estimate_grid_offset_hz
     from tetraear_tpu_torch.utils.metrics import profile_trace
 
     conv = resolve_conv(args.conv, dev, args.pfb)
-    if args.pfb and not CONV_VARIANTS[conv].pfb:
+    try:
+        runs = conv_variant(conv, pfb=args.pfb).runs
+    except ValueError:                  # s2d_of, the one 16-carrier choice
         raise SystemExit(f"--conv {conv} is a 16-carrier variant; the "
-                         "PFB supports auto, s2d, pallas, pallas_bf16")
-    runs = CONV_VARIANTS[conv].runs
+                         "PFB supports auto, s2d, pallas, pallas_bf16"
+                         ) from None
     if dev.type == "cpu" and conv.startswith("pallas"):
         runs += "; the kernel's plain version on the CPU"
     print(f"[DEVICE] {dev} ({_device_name(dev)}), conv {args.conv}"
