@@ -11,10 +11,11 @@ Phases (each prints its results; the first failure exits nonzero):
               power limit as nvidia-smi reports them
   2. build    compile K1 / K1-of f32 (tetraear_tpu_torch/csrc/s2d_conv.cu),
               K1 / K1-of bf16 on the tensor cores (csrc/s2d_conv_tc.cu),
-              K3 (csrc/s2d_conv_db.cu), K4 (csrc/s2d_conv_dt.cu) and K5
-              (csrc/fused_channelize.cu) with nvcc for sm_90a, one nvcc per
-              source, all at once; print the build times and ptxas's
-              report
+              K3 (csrc/s2d_conv_db.cu), K4 (csrc/s2d_conv_dt.cu), K5
+              (csrc/fused_channelize.cu), the Viterbi (csrc/viterbi.cu)
+              and the sync walk (csrc/sync_walk.cu) with nvcc for
+              sm_90a, one nvcc per source, all at once; print the build
+              times and ptxas's report
   3. kernel   each kernel against its plain PyTorch version on the card:
               K1, f32 and bf16, at C2 = 32 with the bench's n = 8,319,936,
               at C2 = 192 with a ragged n = 1,000,007, and on the full-band
@@ -49,6 +50,22 @@ Phases (each prints its results; the first failure exits nonzero):
               device operations a call), the kernel's host time a call,
               its latency bound (`viterbi_bound_ms`) and its share of it,
               and the chunk's sums
+  3c. sync    the multicarrier sync walk kernel (csrc/sync_walk.cu)
+              against its plain version (ops.sync.sync_walk_plain) on
+              frontend results of planted signals in seeded noise at the
+              benchmark cells' shapes (the full band at 2,097,152 and
+              262,144 samples: 96 x 32,241 and 96 x 4,009 scores; 16
+              carriers at 2,097,152: 16 x 32,241), on noise rows at those
+              shapes and on rows of every window a hit, of every window at
+              the adaptive level and of mixed lengths, every position and
+              count equal, each call one launch; then at each cell shape
+              the kernel's device time in torch.profiler over 100 calls,
+              back to back (the scores in L2, as the frontend leaves them)
+              and after a 64 MB write that evicts them, its bound (the
+              scores' bytes twice at 3.35 TB/s, and the latency of the
+              longest row's chain), the plain version's host time, and
+              the walk it replaced (each row's `frontend_walk` on the
+              pulled scores) with the pull of the score matrix
   4. decode   the main paths through the entry points a user calls, each
               on a planted signal, every launch count set to 0 just before
               and read just after: `tetraear_tpu_torch.ui.cli.main(
@@ -66,7 +83,8 @@ Phases (each prints its results; the first failure exits nonzero):
               `variant="dt_bf16"` (K4, both routes) with the real-pair
               tail, all through `MulticarrierDecoder`.  Every planted SDS
               text must come back on its channel, and each path's kernel
-              must have launched.  Then, uncounted, the 16-carrier and
+              must have launched; each CLI path launches the sync walk
+              once a chunk.  Then, uncounted, the 16-carrier and
               full-band `pallas_bf16` and the `pallas_of4_bf16` frontends
               on the planted signals, and the `pallas_bf16` frontends on
               signals planted at 8 MS/s (16 carriers, K = 5082), 3.2 MS/s
@@ -302,7 +320,17 @@ KERNELS = {                  # wrapper -> (source, TPU kernel it replaces)
                          "tetraear_tpu/ops/pallas/fused_channelize.py:59"),
     "viterbi": ("tetraear_tpu_torch/csrc/viterbi.cu",
                 "none: tetraear_tpu/ops/viterbi.py:141 is a lax.scan"),
+    "sync_walk": ("tetraear_tpu_torch/csrc/sync_walk.cu",
+                  "none: the JAX package's TetraDecoder.find_sync walks "
+                  "on the host"),
 }
+CLI_CHUNK = 256 * 1024       # decode --chunk-size's default
+# the sync walk's latency bound, in clocks: a row's two reads of its
+# scores (HBM ~400 each, the cuda guide), then one dependent step of the
+# walk a 1,024 windows or an accept (shared load ~20, ballot, shuffle,
+# __ffs and the compare, ~4 each)
+SYNC_LOAD_CLOCKS = 2 * 400
+SYNC_STEP_CLOCKS = 20 + 5 * 4
 # (N, B) of the downlink cell's Viterbi calls a multiframe: acquisition's
 # BSCH try, then the BSCH, SCH/HD and SCH/F groups of its 72 slots
 VITERBI_SHAPES = ((80, 1), (80, 18), (144, 18), (288, 36))
@@ -604,6 +632,151 @@ def phase_viterbi(device, card: str) -> dict:
             "bound_by": by, "library_ms": None}
 
 
+def _sync_cases(device) -> list:
+    """(tag, scores, counts) on the card for phase 3c: frontend results of
+    planted signals in seeded noise at the cells' shapes, noise rows at
+    those shapes, and rows of every window a hit, of every window at the
+    adaptive level and of mixed lengths."""
+    import numpy as np
+    import torch
+    from tetraear_tpu_torch.models.multicarrier import build_frontend
+    from tetraear_tpu_torch.ops.channelizer import carrier_grid
+    from tetraear_tpu_torch.utils.synth import planted_pfb, planted_wideband
+    rng = np.random.default_rng(20)
+    cases = []
+    for tag, pfb, planted, n in (
+            ("full band, 2,097,152 samples", True, planted_pfb, 2_097_152),
+            ("16 carriers, 2,097,152 samples", False,
+             lambda: planted_wideband(PLANTED), 2_097_152),
+            ("full band, 262,144 samples", True, planted_pfb, 262_144)):
+        fe = build_frontend("pallas_bf16", device=device, pfb=pfb,
+                            offsets_hz=None if pfb else carrier_grid(16))
+        x = (rng.standard_normal(2 * n).astype(np.float32) * 0.01).view(
+            np.complex64)
+        sig = planted()[0][:n]
+        x[:len(sig)] += sig
+        res = fe(x)
+        cases.append((tag, res.sync_corr, res.count))
+        r, w = res.sync_corr.shape
+        k = np.maximum(rng.binomial(22, 0.5, (r, w)),
+                       rng.binomial(22, 0.5, (r, w)))
+        cases.append((f"noise rows {r} x {w}",
+                      torch.as_tensor((k / 22).astype(np.float32),
+                                      device=device), res.count))
+    w = 40_000
+    rows = np.full((3, w), np.float32(0.5))
+    rows[0] = 1.0
+    rows[1] = 0.80
+    rows[2, 7::249] = 0.95
+    cases.append(("every window a hit, at 0.80, hits 249 apart",
+                  torch.as_tensor(rows, device=device),
+                  torch.full((3,), (w + 21) // 2 + 1, dtype=torch.int32,
+                             device=device)))
+    counts = np.array([0, 1, 11, 12, 13, 900, 16_131, 20_011], np.int32)
+    k = rng.binomial(22, 0.55, (len(counts), w))
+    cases.append(("mixed lengths", torch.as_tensor(
+        (k / 22).astype(np.float32), device=device),
+        torch.as_tensor(counts, device=device)))
+    return cases
+
+
+def sync_bound_ms(corr, count, accepted, mhz: float) -> tuple:
+    """(bound ms, "bytes" | "latency", bytes ms, latency ms) of the sync
+    walk on scores `corr` (R, W): the scores read twice at PEAK_BYTES, or
+    the longest row's chain (its reads, then a step for every 1,024
+    windows and every accept) at `mhz`."""
+    import numpy as np
+    rows, width = corr.shape
+    bytes_ms = 2 * rows * width * 4 / PEAK_BYTES * 1e3
+    nsym = np.maximum(count.astype(np.int64) - 1, 0)
+    valid = np.clip(2 * nsym - 21, 0, width)
+    steps = int((accepted + -(-valid // 1024)).max()) if rows else 0
+    latency_ms = (SYNC_LOAD_CLOCKS + steps * SYNC_STEP_CLOCKS) / (
+        mhz * 1e6) * 1e3
+    return ((bytes_ms, "bytes", bytes_ms, latency_ms) if bytes_ms >= latency_ms
+            else (latency_ms, "latency", bytes_ms, latency_ms))
+
+
+def phase_sync_walk(device, card: str) -> dict:
+    """3c: the sync walk kernel against its plain version (module
+    docstring); -> its times at the full band's quiet shape, with its
+    bound."""
+    import numpy as np
+    import torch
+    from tetraear_tpu_torch.core.decoder import TetraDecoder
+    from tetraear_tpu_torch.ops import sync
+    from tetraear_tpu_torch.ops.kernels import sync_walk as ksw
+    mhz = _max_sm_mhz()
+    cases = _sync_cases(device)
+    wrong = 0
+    for tag, corr, count in cases:
+        got = _launched("sync_walk", lambda: sync.sync_walk(corr, count))
+        want = sync.sync_walk_plain(corr, count)
+        same = all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+        wrong += not same
+        print(f"[sync] {tag}: {tuple(corr.shape)}, {int(want[1].sum())} "
+              f"positions, kernel {'equal' if same else 'DIFFERS'}")
+    if wrong:
+        fail("sync", f"{wrong} cases differ from the plain version")
+    flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=device)
+    out = None
+    for tag, corr, count in cases[:6:2]:
+        def kernel():
+            return ksw.sync_walk(corr, count)
+
+        def cold():
+            flush.zero_()
+            return ksw.sync_walk(corr, count)
+        warm_ms = _device_busy_ms(kernel, 100)[0]
+        cold_ms = next((ms for name, ms in _device_busy_ms(cold, 100)[1]
+                        if "sync_walk" in name), None)
+        events_ms = _time_ms(kernel, 200, 10)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            kernel()
+        host_ms = (time.perf_counter() - t0) / 200 * 1e3
+        torch.cuda.synchronize()
+        cpu_corr, cpu_count = corr.cpu(), count.cpu()
+        t0 = time.perf_counter()
+        _, acc = sync.sync_walk_plain(cpu_corr, cpu_count)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        # what the decode did before: pull the scores, walk every row
+        dec = TetraDecoder(device="cpu")
+        t0 = time.perf_counter()
+        s = corr.cpu().numpy()
+        pull_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        for r, c in enumerate(cpu_count.numpy()):
+            nbits = 2 * max(int(c) - 1, 0)
+            dec.frontend_walk(np.zeros(nbits, np.uint8),
+                              np.zeros(nbits // 2, np.int64),
+                              s[r, :max(0, nbits - 21)])
+        cascade_ms = (time.perf_counter() - t0) * 1e3
+        bound_ms, by, bytes_ms, latency_ms = sync_bound_ms(
+            s, cpu_count.numpy(), acc.numpy(), mhz)
+        print(f"[sync] {card}: {tag} {tuple(corr.shape)}: kernel "
+              f"{warm_ms:.4f} ms with the scores in L2, "
+              + (f"{cold_ms:.4f} ms after a 64 MB write"
+                 if cold_ms is not None else "cold not measured")
+              + f" (device time in torch.profiler, 100 calls); back to back "
+              f"{events_ms:.4f} ms (CUDA events), host {host_ms:.4f} ms a "
+              f"call, 1 launch ({_device_ops(kernel)} device op); bound "
+              f"{bound_ms:.4f} ms by {by} (bytes: the scores twice "
+              f"{bytes_ms:.4f} ms, once {bytes_ms / 2:.4f}; latency "
+              f"{latency_ms:.4f} ms); plain version {plain_ms:.2f} ms on "
+              f"the host; replaced: the score pull {pull_ms:.2f} ms and "
+              f"each row's frontend_walk {cascade_ms:.2f} ms")
+        if out is None:
+            ms = cold_ms if cold_ms is not None else warm_ms
+            out = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms,
+                   "bound_by": f"{by}: 2 x R x W x 4 B at 3.35 TB/s, or "
+                   f"{SYNC_LOAD_CLOCKS} + steps x {SYNC_STEP_CLOCKS} clocks "
+                   f"at {mhz:.0f} MHz", "library_ms": None}
+    return out
+
+
 def kernel_k4(device) -> dict:
     """K4 against the plain conv: dt (CUDA cores) within the f32
     sum-order bound; dt_bf16 (the tensor-core kernel, unfolded, its own
@@ -876,7 +1049,12 @@ def phase_decode(device) -> dict:
             ("cli 16 carriers pallas (f32)",
              ["--carriers", "16", "--conv", "pallas"], x16, want16,
              "s2d_conv")):
-        add(_path(tag, wrapper, lambda: _cli_run(tag, argv, x, want)))
+        counts = _path(tag, wrapper, lambda: _cli_run(tag, argv, x, want))
+        chunks = -(-len(x) // CLI_CHUNK)
+        if counts["sync_walk"] != chunks:
+            fail("decode", f"{tag}: {counts['sync_walk']} sync walk "
+                 f"launches for {chunks} chunks")
+        add(counts)
 
     def module_run(tag, mc, x, num_channels, want):
         frames = MulticarrierDecoder(num_channels,
@@ -3324,6 +3502,8 @@ def main() -> int:
     errs = phase_kernel(device)
     viterbi = phase_viterbi(device, card)
     errs["viterbi"] = viterbi["max_abs_err"]
+    sync_walk = phase_sync_walk(device, card)
+    errs["sync_walk"] = sync_walk["max_abs_err"]
     t2 = time.perf_counter()
     launches = phase_decode(device)
     t3 = time.perf_counter()
@@ -3351,6 +3531,7 @@ def main() -> int:
     t4 = time.perf_counter()
     t = phase_timing(device, card)
     t["viterbi"] = viterbi
+    t["sync_walk"] = sync_walk
     t5 = time.perf_counter()
     single_ms = phase_timing_single(device, card)
     t6 = time.perf_counter()
@@ -3360,7 +3541,7 @@ def main() -> int:
     t8 = time.perf_counter()
     for name, n in phase_bench(device, card, t, single_ms).items():
         launches[name] += n
-    print(f"[timing] phases: build {t1 - t0:.1f} s, kernel + viterbi "
+    print(f"[timing] phases: build {t1 - t0:.1f} s, kernel + viterbi + sync "
           f"{t2 - t1:.1f} s, "
           f"decode {t3 - t2:.1f} s, single + downlink + operator "
           f"{t_pod - t3:.1f} s, pod {t_tools - t_pod:.1f} s, tools "
@@ -3373,7 +3554,7 @@ def main() -> int:
              "s2d_conv_of": "k1of_f32", "s2d_conv_of_bf16": "k1of_bf16",
              "s2d_conv_db": "k3", "s2d_conv_dt": "k4_f32",
              "s2d_conv_dt_bf16": "k4_bf16", "fused_channelize": "k5",
-             "viterbi": "viterbi"}
+             "viterbi": "viterbi", "sync_walk": "sync_walk"}
     print(card)
     print(json.dumps({"kernels": [{
         "name": name,

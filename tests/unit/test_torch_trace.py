@@ -26,11 +26,14 @@ CHUNK_SPANS = ("tetra.frontend", "tetra.frontend.h2d",
                "tetra.frontend.candidates", "tetra.decode",
                "tetra.decode.pull", "tetra.decode.rows")
 INNER_SPANS = ("sync", "frame", "frame.batch")
-COUNTERS = ("sync.passes", "frame.tried", "frame.passed", "frame.batched")
+FRAME_COUNTERS = ("frame.tried", "frame.passed", "frame.batched")
+# the wideband walk counts rows; the single carrier's cascade its passes
+COUNTERS = ("sync.rows", "sync.kernel") + FRAME_COUNTERS
+SINGLE_COUNTERS = ("sync.passes",) + FRAME_COUNTERS
 READERS = ("host_decode.wait.ms", "host_decode.sync.ms",
            "host_decode.frame.ms", "host_decode.frame_yield",
            "frontend.host.ms", "frontend.h2d.ms",
-           "host_decode.frame_batch.ms")
+           "host_decode.frame_batch.ms", "host_decode.sync_kernel_share")
 
 
 def _cell(name, busy):
@@ -209,19 +212,25 @@ def test_child_spans_lie_inside_their_parent(traced):
 
 
 def test_counters_count_the_calls(traced):
-    """frame.passed equals the frames decode returned, frame.tried and
-    sync.passes the slots' frame decodes and the find_sync calls,
-    frame.batched the slots the batches took, which is every slot tried;
-    the inner spans' calls equal them, one batch a chunk."""
+    """frame.passed equals the frames decode returned, frame.tried the
+    slots' frame decodes, frame.batched the slots the batches took, which
+    is every slot tried; sync.rows the frontend's rows every chunk, and
+    sync.kernel none on the CPU, where no find_sync cascade runs either
+    (the walk is ops.sync's); the inner spans' calls equal them, one sync
+    span and one batch a chunk."""
     run, _, out, snap, _, n = traced
     frames = sum(len(rows) for chunk in out[1] for rows in chunk)
     assert frames > 0
+    chunks = len(run.ring.chunks)
+    rows = len(out[0][0]["count"])
     c = snap["counters"]
-    assert c == {"sync.passes": n["sync"], "frame.tried": n["tried"],
-                 "frame.passed": n["passed"], "frame.batched": n["batched"]}
+    assert c == {"sync.rows": rows * chunks, "sync.kernel": 0,
+                 "frame.tried": n["tried"], "frame.passed": n["passed"],
+                 "frame.batched": n["batched"]}
+    assert n["sync"] == 0
     assert c["frame.passed"] == frames
     assert c["frame.batched"] == c["frame.tried"]
-    assert snap["spans"]["sync"]["count"] == n["sync"]
+    assert snap["spans"]["sync"]["count"] == chunks
     assert snap["spans"]["frame"]["count"] == n["tried"]
     assert (snap["spans"]["frame.batch"]["count"] == n["batches"]
             == len(run.ring.chunks))
@@ -286,6 +295,7 @@ def test_traced_harness_run_reads_the_six_metrics():
     assert 0 < m["host_decode.frame_batch.ms"] <= m["host_decode.frame.ms"]
     assert m["frontend.h2d.ms"] <= m["frontend.host.ms"]
     assert 0 < m["host_decode.frame_yield"] <= 100
+    assert m["host_decode.sync_kernel_share"] == 0
     assert result["correct"], result["check"]
     labels = {k for k, _ in result["breakdown"]["idle_gaps"]}
     assert labels <= {"host_decode", "frontend", "other host work"}
@@ -320,7 +330,8 @@ def test_decode_trace_dir(tmp_path, monkeypatch, capsys, argv, chunk_spans):
     assert not set(INNER_SPANS) & names
     spans = json.loads((trace / "spans.json").read_text())
     assert set(spans["spans"]) == set(chunk_spans) | set(INNER_SPANS)
-    assert set(spans["counters"]) == set(COUNTERS)
+    assert set(spans["counters"]) == set(COUNTERS if chunk_spans
+                                         else SINGLE_COUNTERS)
     if chunk_spans:
         assert spans["chunks"]["tetra.decode"] >= 1
         assert spans["spans"]["tetra.decode"]["per_chunk_ms"] > 0

@@ -19,14 +19,17 @@ staged chains, the reference's `fused=False`, are
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, replace
 from typing import Callable
 
 import numpy as np
 import torch
 
+from tetraear_tpu_torch import constants as C
 from tetraear_tpu_torch.config import ReceiverConfig
-from tetraear_tpu_torch.core.decoder import TetraDecoder, decode_walks
+from tetraear_tpu_torch.core.decoder import (SlotWalk, TetraDecoder,
+                                             decode_walks)
 from tetraear_tpu_torch.models.candidates import (  # noqa: F401
     CandidateStage, MulticarrierResult, candidate_stage, extract_candidates)
 from tetraear_tpu_torch.models.realpair import (
@@ -38,7 +41,7 @@ from tetraear_tpu_torch.ops.kernels.s2d_conv import (
     check_fold, parse_fold, s2d_conv, s2d_conv_db, s2d_conv_of, tc_pack,
     tc_pack_k1)
 from tetraear_tpu_torch.ops.timing import best_phase_pick
-from tetraear_tpu_torch.utils.metrics import span
+from tetraear_tpu_torch.utils.metrics import record, span, tracing
 
 
 def _demod_front(y: torch.Tensor, sps: int,
@@ -434,6 +437,20 @@ def build_frontend(conv: str, *, device, pfb: bool = False,
                             **kwargs)
 
 
+def slot_positions(counts, found, accepted) -> list:
+    """Each row's sync positions, int64, whose 510-bit slot starts inside
+    the row (`TetraDecoder.walk`'s filter: start = pos - 216 >= 0 and
+    start // 2 + 255 <= the row's symbols), from its symbol count (C,)
+    and the walk's positions (C, cap) and accepted counts (C,)
+    (`ops.sync.sync_walk`)."""
+    nsym = np.maximum(counts.astype(np.int64) - 1, 0)
+    pos = found.astype(np.int64)
+    start = pos - C.SYNC_TO_FRAME_START_BITS
+    keep = ((np.arange(pos.shape[1]) < accepted[:, None]) & (start >= 0)
+            & (start // 2 + C.SYMBOLS_PER_SLOT <= nsym[:, None]))
+    return [row[k] for row, k in zip(pos, keep)]
+
+
 class MulticarrierDecoder:
     """Host decode over MulticarrierResult: one stateful TetraDecoder per
     carrier, fed from the device bit streams and dense sync scores; the
@@ -445,30 +462,47 @@ class MulticarrierDecoder:
                                       device=device)
                          for _ in range(num_carriers)]
 
+    def walks(self, bits, counts, positions) -> list:
+        """Each row's SlotWalk from the pulled frontend result: its bits
+        (C, B) uint8 and symbol counts (C,), and its sync positions as
+        `slot_positions` keeps them."""
+        walks = []
+        for c, dec in enumerate(self.decoders):
+            cbits = bits[c, :2 * max(int(counts[c]) - 1, 0)]
+            mapped = (cbits[0::2].astype(np.int64) << 1) | cbits[1::2]
+            walks.append(SlotWalk(dec, cbits, mapped, positions[c]))
+        return walks
+
     def decode(self, result: MulticarrierResult) -> list:
         """-> list of per-carrier frame lists; frames gain a 'carrier' key.
-        Every row's sync walk first, then one frame decode over all their
-        slots (`decode_walks`: one batch, then each row's frames by its
-        own decoder, in row order).  A chunk span `tetra.decode`
-        (utils.metrics) holds the device-to-host pulls, which wait on the
-        stream (`tetra.decode.pull`), and the rows (`tetra.decode.rows`)."""
+        Every row's sync walk at once, where the scores lie
+        (`ops.sync.sync_walk`: on a card one kernel launch, queued before
+        the pulls), each row's hits whose slot starts inside it, then one
+        frame decode over all their slots (`decode_walks`: one batch, then
+        each row's frames by its own decoder, in row order).  A chunk span
+        `tetra.decode` (utils.metrics) holds the device-to-host pulls of
+        the bits, the counts and the walk's positions, which wait on the
+        stream (`tetra.decode.pull`), and the rows (`tetra.decode.rows`),
+        where the inner span `sync` is the host part of the walk,
+        `slot_positions`, once a chunk (counters `sync.rows`, the rows
+        walked, and `sync.kernel`, those the kernel walked)."""
         with span("tetra.decode"):
+            found, accepted = sync.sync_walk(result.sync_corr, result.count)
             with span("tetra.decode.pull"):
                 bits = result.bits.cpu().numpy()
-                corr = result.sync_corr.cpu().numpy()
                 counts = result.count.cpu().numpy()
+                found = found.cpu().numpy()
+                accepted = accepted.cpu().numpy()
             with span("tetra.decode.rows"):
-                walks = []
-                for c, dec in enumerate(self.decoders):
-                    nsym = max(int(counts[c]) - 1, 0)
-                    nbits = 2 * nsym
-                    cbits = bits[c, :nbits]
-                    mapped = ((cbits[0::2].astype(np.int64) << 1)
-                              | cbits[1::2])
-                    ncorr = max(0, nbits - 21)
-                    walks.append(dec.frontend_walk(cbits, mapped,
-                                                   corr[c, :ncorr]))
-                out = decode_walks(walks)
+                traced = tracing()
+                t0 = time.perf_counter_ns() if traced else 0
+                positions = slot_positions(counts, found, accepted)
+                if traced:
+                    rows = len(positions)
+                    record("sync", time.perf_counter_ns() - t0, 1,
+                           {"sync.rows": rows, "sync.kernel":
+                            rows if result.sync_corr.is_cuda else 0})
+                out = decode_walks(self.walks(bits, counts, positions))
                 for c, frames in enumerate(out):
                     for f in frames:
                         f["carrier"] = c

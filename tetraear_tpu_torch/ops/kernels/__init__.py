@@ -30,9 +30,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
-KERNEL_MODULES = ("s2d_conv", "fused_channelize", "viterbi")
+KERNEL_MODULES = ("s2d_conv", "fused_channelize", "viterbi", "sync_walk")
 SOURCES = ("s2d_conv", "s2d_conv_tc", "s2d_conv_db", "s2d_conv_dt",
-           "fused_channelize", "viterbi")
+           "fused_channelize", "viterbi", "sync_walk")
 
 
 def _counters() -> list:
